@@ -1,0 +1,89 @@
+"""Rollouts, GAE and explained variance (counterpart of
+srl_tpu/agents/common.py). The reference's ``lax.scan`` loops are Python
+loops here; every tensor stays on the env's device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from srl_tpu_torch.core.env import VecEnv, VecEnvState
+from srl_tpu_torch.core.normalize import RunningNorm
+
+
+@dataclasses.dataclass
+class RolloutBatch:
+    """[T, N, ...] tensors from one rollout segment."""
+
+    obs: torch.Tensor
+    actions: torch.Tensor
+    log_probs: torch.Tensor
+    values: torch.Tensor
+    rewards: torch.Tensor
+    dones: torch.Tensor
+    episode_return: torch.Tensor  # NaN except where done
+    episode_length: torch.Tensor
+
+
+@torch.no_grad()
+def collect_rollout(
+    vec_env: VecEnv,
+    policy: Callable,
+    vstate: VecEnvState,
+    obs: torch.Tensor,
+    obs_norm: Optional[RunningNorm],
+    gen: torch.Generator,
+    n_steps: int,
+) -> Tuple[VecEnvState, torch.Tensor, Optional[RunningNorm], torch.Tensor, RolloutBatch]:
+    """``n_steps`` of (policy -> env step -> auto-reset). The normalizer
+    statistics update online during collection. ``policy(obs)`` returns
+    (distribution, value). Returns (vstate', last_obs, obs_norm',
+    last_norm_obs, batch)."""
+    steps = []
+    for _ in range(n_steps):
+        if obs_norm is not None:
+            obs_norm = obs_norm.update(obs)
+            norm_obs = obs_norm.normalize(obs)
+        else:
+            norm_obs = obs
+        dist, value = policy(norm_obs)
+        action = dist.sample(gen)
+        log_prob = dist.log_prob(action)
+        vstate, tr = vec_env.step(vstate, action, gen)
+        steps.append((norm_obs, action, log_prob, value, tr.reward, tr.done,
+                      tr.episode_return, tr.episode_length))
+        obs = tr.obs
+    batch = RolloutBatch(*(torch.stack(x) for x in zip(*steps)))
+    last_norm_obs = obs_norm.normalize(obs) if obs_norm is not None else obs
+    return vstate, obs, obs_norm, last_norm_obs, batch
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c rounded once to float32, as the fused multiply-adds that
+    XLA forms from the reference's expressions: the float32 product is exact
+    in float64."""
+    return (a.double() * b.double() + c.double()).to(torch.float32)
+
+
+def compute_gae(rewards, values, dones, last_value, gamma: float, lam: float):
+    """Generalized advantage estimation over [T, N]; a done at step t cuts
+    the bootstrap from t + 1. Returns (advantages, returns)."""
+    gae = torch.zeros_like(last_value)
+    value_next = last_value
+    advantages = [None] * rewards.shape[0]
+    for t in reversed(range(rewards.shape[0])):
+        not_done = 1.0 - dones[t].to(torch.float32)
+        delta = _fma(gamma * value_next, not_done, rewards[t]) - values[t]
+        gae = _fma(gamma * lam * not_done, gae, delta)
+        advantages[t] = gae
+        value_next = values[t]
+    advantages = torch.stack(advantages)
+    return advantages, advantages + values
+
+
+def explained_variance(y_pred: torch.Tensor, y_true: torch.Tensor) -> torch.Tensor:
+    var_y = torch.var(y_true, unbiased=False)
+    ev = 1 - torch.var(y_true - y_pred, unbiased=False) / var_y
+    return torch.where(var_y == 0, torch.nan, ev)

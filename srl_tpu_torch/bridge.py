@@ -1,0 +1,117 @@
+"""Weights and state across the two packages, as numpy.
+
+* Flax parameter trees of the reference ``ActorCritic`` become this port's
+  ``state_dict`` and back: a Dense kernel [in, out] is a Linear weight
+  [out, in], a conv kernel HWIO is OIHW, and the Nature CNN's fc kernel needs
+  nothing more because both torsos flatten in NHWC order.
+* ``load_jax_checkpoint`` reads the pickles the reference agents write
+  (``{"name", "config", "num_envs", "policy_kind", "normalize_obs",
+  "params", "obs_norm"}``) and the port writes the same format.
+* ``kuka_state_from_numpy`` turns a batched reference ``KukaState`` (as a
+  dict of numpy arrays) into the port's ``KukaState``.
+
+This module imports neither package's framework beyond torch and numpy; the
+tests hand it the reference's arrays.
+"""
+from __future__ import annotations
+
+import dataclasses
+import pickle
+from typing import Dict
+
+import numpy as np
+import torch
+
+# Port torso attribute -> Flax module name of the reference.
+_TORSO_NAMES = {"mlp": "MlpTorso_0", "cnn": "NatureCnnTorso_0"}
+
+
+def _to_flax(name: str, x: np.ndarray) -> np.ndarray:
+    if name.endswith("weight"):
+        return np.ascontiguousarray(x.transpose(2, 3, 1, 0) if x.ndim == 4 else x.T)
+    return x
+
+
+def _from_flax(name: str, x: np.ndarray) -> np.ndarray:
+    if name.endswith("weight"):
+        return np.ascontiguousarray(x.transpose(3, 2, 0, 1) if x.ndim == 4 else x.T)
+    return x
+
+
+def _flax_path(name: str, torso_kind: str):
+    """``torso.c1.weight`` -> (NatureCnnTorso_0, c1, kernel)."""
+    parts = name.split(".")
+    if parts[0] == "torso":
+        parts[0] = _TORSO_NAMES[torso_kind]
+    if parts[-1] == "weight":
+        parts[-1] = "kernel"
+    return parts
+
+
+def state_dict_to_flax(state_dict: Dict[str, torch.Tensor], torso_kind: str) -> dict:
+    """Port ``state_dict`` -> ``{"params": {...}}`` Flax tree of float32 numpy."""
+    tree: dict = {}
+    for name, value in state_dict.items():
+        x = value.detach().to("cpu", torch.float32).numpy()
+        node = tree
+        path = _flax_path(name, torso_kind)
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = _to_flax(name, x)
+    return {"params": tree}
+
+
+def flax_to_state_dict(tree: dict, torso_kind: str) -> Dict[str, torch.Tensor]:
+    """``{"params": {...}}`` Flax tree -> port ``state_dict`` (CPU float32)."""
+    params = tree["params"]
+    inv = {v: k for k, v in _TORSO_NAMES.items()}
+    out = {}
+
+    def walk(node, prefix):
+        for key, value in node.items():
+            if isinstance(value, dict):
+                walk(value, prefix + [key])
+                continue
+            parts = prefix + [key]
+            if parts[0] in inv:
+                if inv[parts[0]] != torso_kind:
+                    raise ValueError(f"{parts[0]} in a {torso_kind} policy tree")
+                parts[0] = "torso"
+            if parts[-1] == "kernel":
+                parts[-1] = "weight"
+            name = ".".join(parts)
+            out[name] = torch.tensor(_from_flax(name, np.asarray(value, np.float32)))
+
+    walk(params, [])
+    return out
+
+
+def torso_kind_of(tree: dict) -> str:
+    """``mlp`` or ``cnn`` from the torso module name in a Flax tree."""
+    for kind, name in _TORSO_NAMES.items():
+        if name in tree["params"]:
+            return kind
+    raise ValueError(f"no known torso in {sorted(tree['params'])}")
+
+
+def load_jax_checkpoint(path: str) -> dict:
+    """A reference (or port) agent pickle, with its Flax ``params`` also as
+    a port ``state_dict`` under ``"state_dict"``. Only load files this
+    program or the reference wrote: unpickling runs code."""
+    with open(path, "rb") as f:
+        payload = pickle.load(f)
+    payload["state_dict"] = flax_to_state_dict(
+        payload["params"], torso_kind_of(payload["params"]))
+    return payload
+
+
+def kuka_state_from_numpy(arrays: Dict[str, np.ndarray], device="cpu"):
+    """Batched reference ``KukaState`` fields (numpy, leading dim N) -> the
+    port's ``KukaState``. The reference's per-env PRNG ``key`` has no
+    counterpart and is dropped."""
+    from srl_tpu_torch.envs.kuka import KukaState
+
+    return KukaState(**{
+        f.name: torch.as_tensor(np.array(arrays[f.name]), device=device)
+        for f in dataclasses.fields(KukaState)
+    })

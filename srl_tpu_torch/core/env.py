@@ -1,0 +1,174 @@
+"""Batched environment API and the auto-resetting vector wrapper
+(counterpart of srl_tpu/core/env.py).
+
+Every env here is batched: a state is a dataclass of [N, ...] tensors. The
+randomness of a reset or a step is split in two halves, so that a caller can
+supply the random numbers itself (the tests feed the ones the JAX env drew):
+
+  * ``draw_reset_noise(gen, n)`` / ``apply_reset(noise)``;
+  * ``draw_step_noise(gen, n)`` / ``apply_step(state, action, noise)``.
+
+``reset(gen, n)`` and ``step(state, action, gen)`` compose the two.
+"""
+from __future__ import annotations
+
+import abc
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import torch
+
+from srl_tpu_torch.core.spaces import Space
+
+
+@dataclasses.dataclass
+class Transition:
+    """Result of one vectorized env step (after auto-reset)."""
+
+    obs: torch.Tensor
+    reward: torch.Tensor
+    done: torch.Tensor
+    # Valid where ``done``: return and length of the episode that just
+    # finished (NaN and 0 elsewhere).
+    episode_return: torch.Tensor
+    episode_length: torch.Tensor
+
+
+@dataclasses.dataclass
+class VecEnvState:
+    env_state: Any  # batched env state dataclass
+    ep_return: torch.Tensor  # [N] float32
+    ep_length: torch.Tensor  # [N] int32
+
+
+def state_where(mask: torch.Tensor, a, b):
+    """Field by field ``where(mask, a, b)`` over two batched state
+    dataclasses; ``mask`` is [N] bool."""
+    out = {}
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        m = mask.reshape(mask.shape + (1,) * (x.dim() - 1))
+        out[f.name] = torch.where(m, x, y)
+    return type(a)(**out)
+
+
+class BatchedEnv(abc.ABC):
+    """Abstract batched environment (the port's ``TpuEnv``)."""
+
+    srl_model: str = "ground_truth"
+    relative_pos: bool = True
+    max_steps: int = 1000
+
+    @abc.abstractmethod
+    def draw_reset_noise(self, gen: torch.Generator, n: int) -> dict:
+        """The random numbers one reset of ``n`` envs consumes."""
+
+    @abc.abstractmethod
+    def apply_reset(self, noise: dict):
+        """Fresh episode states from drawn reset noise."""
+
+    @abc.abstractmethod
+    def draw_step_noise(self, gen: torch.Generator, n: int) -> dict:
+        """The random numbers one step of ``n`` envs consumes."""
+
+    @abc.abstractmethod
+    def apply_step(self, state, action, noise: dict):
+        """Advance one step: returns (state', reward [N], done [N])."""
+
+    @abc.abstractmethod
+    def observe(self, state) -> torch.Tensor:
+        """[N, ...] observations for the configured srl_model mode."""
+
+    @abc.abstractmethod
+    def ground_truth(self, state) -> torch.Tensor:
+        """[N, d] low-dimensional ground-truth state."""
+
+    @abc.abstractmethod
+    def target_pos(self, state) -> torch.Tensor:
+        """[N, 3] position of the current target."""
+
+    @property
+    @abc.abstractmethod
+    def action_space(self) -> Space:
+        ...
+
+    @property
+    @abc.abstractmethod
+    def observation_space(self) -> Space:
+        ...
+
+    def reset(self, gen: torch.Generator, n: int):
+        return self.apply_reset(self.draw_reset_noise(gen, n))
+
+    def step(self, state, action, gen: torch.Generator):
+        return self.apply_step(state, action,
+                               self.draw_step_noise(gen, action.shape[0]))
+
+    def srl_state(self, state) -> torch.Tensor:
+        gt = self.ground_truth(state)
+        if self.relative_pos:
+            return gt - self.target_pos(state)
+        return gt
+
+
+class VecEnv:
+    """Auto-resetting vector of ``num_envs`` envs.
+
+    Stable-baselines semantics: when an episode ends, ``done`` is True for
+    that step, the returned observation is the first one of the new episode,
+    and the finished episode's return and length ride on the Transition.
+    """
+
+    def __init__(self, env: BatchedEnv, num_envs: int):
+        self.env = env
+        self.num_envs = num_envs
+
+    def reset(self, gen: torch.Generator,
+              noise: Optional[dict] = None) -> Tuple[VecEnvState, torch.Tensor]:
+        if noise is None:
+            noise = self.env.draw_reset_noise(gen, self.num_envs)
+        env_state = self.env.apply_reset(noise)
+        obs = self.env.observe(env_state)
+        n, dev = self.num_envs, obs.device
+        vstate = VecEnvState(
+            env_state=env_state,
+            ep_return=torch.zeros(n, dtype=torch.float32, device=dev),
+            ep_length=torch.zeros(n, dtype=torch.int32, device=dev),
+        )
+        return vstate, obs
+
+    def step(self, vstate: VecEnvState, actions: torch.Tensor,
+             gen: Optional[torch.Generator] = None,
+             step_noise: Optional[dict] = None,
+             reset_noise: Optional[dict] = None) -> Tuple[VecEnvState, Transition]:
+        """One step of every env. The noise dicts, when given, replace the
+        draws from ``gen``; reset noise is drawn only when an episode ended."""
+        if step_noise is None:
+            step_noise = self.env.draw_step_noise(gen, self.num_envs)
+        env_state, reward, done = self.env.apply_step(
+            vstate.env_state, actions, step_noise)
+        ep_return = vstate.ep_return + reward
+        ep_length = vstate.ep_length + 1
+
+        # Masked select of fresh states where done (one host sync: the reset
+        # pass is skipped on the common step where no episode ended).
+        if bool(done.any()):
+            if reset_noise is None:
+                reset_noise = self.env.draw_reset_noise(gen, self.num_envs)
+            fresh = self.env.apply_reset(reset_noise)
+            env_state = state_where(done, fresh, env_state)
+
+        obs = self.env.observe(env_state)
+        transition = Transition(
+            obs=obs,
+            reward=reward,
+            done=done,
+            episode_return=torch.where(done, ep_return, torch.nan),
+            episode_length=torch.where(done, ep_length, 0),
+        )
+        new_vstate = VecEnvState(
+            env_state=env_state,
+            ep_return=torch.where(done, 0.0, ep_return),
+            ep_length=torch.where(done, 0, ep_length),
+        )
+        return new_vstate, transition

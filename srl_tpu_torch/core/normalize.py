@@ -1,0 +1,46 @@
+"""Running observation normalization (counterpart of
+srl_tpu/core/normalize.py).
+
+A parallel (Chan et al.) running mean and variance over observation batches,
+variance with ddof 0, applied as ``clip((x - mean) / sqrt(var + eps), +-10)``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+CLIP_OBS = 10.0
+EPS = 1e-8
+
+
+@dataclasses.dataclass
+class RunningNorm:
+    mean: torch.Tensor
+    var: torch.Tensor
+    count: torch.Tensor  # float32 scalar
+
+    @classmethod
+    def create(cls, shape, device="cpu") -> "RunningNorm":
+        f32 = dict(dtype=torch.float32, device=device)
+        return cls(mean=torch.zeros(shape, **f32), var=torch.ones(shape, **f32),
+                   count=torch.tensor(1e-4, **f32))
+
+    def update(self, batch: torch.Tensor) -> "RunningNorm":
+        """Chan et al. parallel update from a [B, ...] batch."""
+        batch = batch.to(torch.float32)
+        batch_mean = batch.mean(0)
+        batch_var = batch.var(0, unbiased=False)
+        batch_count = torch.tensor(float(batch.shape[0]), dtype=torch.float32,
+                                   device=batch.device)
+        delta = batch_mean - self.mean
+        tot = self.count + batch_count
+        new_mean = self.mean + delta * batch_count / tot
+        m_a = self.var * self.count
+        m_b = batch_var * batch_count
+        m2 = m_a + m_b + torch.square(delta) * self.count * batch_count / tot
+        return RunningNorm(mean=new_mean, var=m2 / tot, count=tot)
+
+    def normalize(self, x: torch.Tensor, clip: float = CLIP_OBS) -> torch.Tensor:
+        out = (x - self.mean) / torch.sqrt(self.var + EPS)
+        return torch.clamp(out, -clip, clip)

@@ -1,0 +1,130 @@
+"""Where the time of one PPO2 update goes on the card, for the slice's main
+path (KukaButtonGymEnv-v0 from raw pixels, render scale 2, coarse
+observations, the Nature CNN).
+
+    python -m srl_tpu_torch.experiments.profile_slice [--num-envs 256]
+
+After one warm-up update it reports, on the host clock with the device
+synchronised around each part:
+
+* the wall time of an update and of its two halves, the 128-step rollout and
+  the 4 x 4 minibatch epochs;
+* a rollout step split into its parts (env dynamics, render, policy, action
+  sampling), each timed over 128 steps with a synchronise between parts
+  (auto-resets left out);
+* under ``torch.profiler``, one more update: device time by kernel (top 12),
+  kernel launches per update, and the device's busy and idle share of the
+  update's wall time.
+
+The last line is one JSON object with the same numbers. Needs a card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import torch
+
+from srl_tpu_torch.agents.ppo import PPO2
+from srl_tpu_torch.envs.kuka import KukaButtonEnv
+
+
+def _sync_time(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def rollout_split(agent: PPO2, state, gen, n_steps: int) -> dict:
+    """Seconds per part over ``n_steps`` steps, synchronising between parts."""
+    env, vec = agent.env, agent.vec_env
+    parts = dict(policy=0.0, sample=0.0, env_step=0.0, render=0.0)
+    env_state, obs = state.vstate.env_state, state.obs
+    with torch.no_grad():
+        for _ in range(n_steps):
+            (dist, _), t = _sync_time(lambda: agent.apply(state.params, obs))
+            parts["policy"] += t
+            action, t = _sync_time(lambda: dist.sample(gen))
+            parts["sample"] += t
+            noise = env.draw_step_noise(gen, vec.num_envs)
+            (env_state, _, _), t = _sync_time(
+                lambda: env.apply_step(env_state, action, noise))
+            parts["env_step"] += t
+            obs, t = _sync_time(lambda: env.observe(env_state))
+            parts["render"] += t
+    return parts
+
+
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--num-envs", type=int, default=256)
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_slice measures the card and needs CUDA")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    env = KukaButtonEnv(srl_model="raw_pixels", render_scale=2, coarse_obs=True)
+    agent = PPO2(env=env, num_envs=args.num_envs, device="cuda")
+    agent.n_updates = 3
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    state = agent.init_state(gen, args.seed)
+    state, _ = agent.train_iteration(state, gen)  # warm-up: cuDNN plans, allocator
+
+    (state, _), t_update = _sync_time(lambda: agent.train_iteration(state, gen))
+    n_steps = agent.config.n_steps
+    from srl_tpu_torch.agents.common import collect_rollout
+
+    policy = lambda obs: agent.apply(state.params, obs)
+    _, t_rollout = _sync_time(lambda: collect_rollout(
+        agent.vec_env, policy, state.vstate, state.obs, state.obs_norm, gen, n_steps))
+    split = rollout_split(agent, state, gen, n_steps)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        (state, _), t_prof = _sync_time(lambda: agent.train_iteration(state, gen))
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+    busy_us = sum(dev_us(e) for e in kernels)
+    launches = sum(e.count for e in kernels)
+    top = sorted(kernels, key=dev_us, reverse=True)[:12]
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    result = {
+        "card": smi.splitlines()[0],
+        "num_envs": args.num_envs,
+        "update_s": t_update,
+        "rollout_s": t_rollout,
+        "epochs_s": t_update - t_rollout,
+        "env_steps_per_s": n_steps * args.num_envs / t_update,
+        "rollout_split_s": split,
+        "profiled_update_s": t_prof,
+        "device_busy_s": busy_us / 1e6,
+        "device_idle_share": 1.0 - busy_us / 1e6 / t_prof,
+        "kernel_launches_per_update": launches,
+        "top_kernels_ms": {e.key[:80]: dev_us(e) / 1e3 for e in top},
+    }
+    print(f"card: {result['card']}")
+    print(f"update {t_update:.3f} s = rollout {t_rollout:.3f} s + epochs "
+          f"{t_update - t_rollout:.3f} s; {result['env_steps_per_s']:.0f} env-steps/s")
+    print("rollout split (s over 128 steps, synchronised): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    print(f"profiled update {t_prof:.3f} s: device busy {busy_us / 1e6:.3f} s, idle "
+          f"share {result['device_idle_share']:.3f}, {launches} kernel launches")
+    for name, ms in result["top_kernels_ms"].items():
+        print(f"  {ms:9.2f} ms  {name}")
+    print(json.dumps(result))
+    return result
+
+
+if __name__ == "__main__":
+    main()

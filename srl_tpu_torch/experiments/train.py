@@ -1,0 +1,173 @@
+"""Training entry point (counterpart of srl_tpu/experiments/train.py).
+
+The port's subset of the reference CLI: ``--algo ppo2`` on the four Kuka
+envs with ``--srl-model raw_pixels|ground_truth``. The run directory has the
+reference's layout, ``{log-dir}/{env}/{srl_model}/{algo}/{datetime}/`` with
+``args.json``, ``env_globals.json``, ``0.monitor.csv``, ``metrics.jsonl``,
+``ppo2_model.pkl`` (best mean reward over the last 100 episodes, once 100
+have finished) and ``ppo2_final_model.pkl``; the reference's
+``srl_tpu.agents.ppo.PPO2.load`` reads both checkpoints.
+
+Usage (the README's pixel run):
+  python -m srl_tpu_torch.experiments.train --env KukaButtonGymEnv-v0 \\
+      --srl-model raw_pixels --algo ppo2 --num-envs 256 --render-scale 2 \\
+      --coarse-obs
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+from datetime import datetime
+
+import numpy as np
+import torch
+
+from srl_tpu_torch.agents.ppo import PPO2
+from srl_tpu_torch.core.device import resolve_device
+from srl_tpu_torch.envs.registry import make_env, registered_env
+from srl_tpu_torch.utils.logging import printGreen
+from srl_tpu_torch.utils.monitor import MonitorWriter
+
+MIN_EPISODES_BEFORE_SAVE = 100
+N_EPISODES_EVAL = 100
+
+# Reference flags this port does not have yet (see ROADMAP.md).
+NOT_PORTED = ("--recompute-obs", "--remat-policy", "--updates-per-call", "--resume",
+              "--num-stack", "--mixed-envs", "--load-rl-model-path", "--hyperparam")
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Train PPO2 on the Kuka envs (PyTorch port)")
+    parser.add_argument("--algo", default="ppo2", choices=["ppo2"])
+    parser.add_argument("--env", default="KukaButtonGymEnv-v0",
+                        choices=list(registered_env.keys()))
+    parser.add_argument("--srl-model", default="raw_pixels",
+                        choices=["raw_pixels", "ground_truth"])
+    parser.add_argument("--num-envs", type=int, default=16)
+    parser.add_argument("--num-timesteps", type=int, default=int(1e6))
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--render-scale", type=int, default=1, choices=[1, 2, 4, 7],
+                        help="trace at 224/s and upsample (1 = exact 224x224)")
+    parser.add_argument("--coarse-obs", action="store_true",
+                        help="with --render-scale 2: hand the traced 112x112 "
+                        "image to the CNN, the upsample folded into conv1")
+    parser.add_argument("-c", "--continuous-actions", action="store_true")
+    parser.add_argument("--log-dir", default="logs/")
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    parser.add_argument("--no-vis", action="store_true",
+                        help="accepted for compatibility: the port draws no plots")
+    for flag in NOT_PORTED:
+        parser.add_argument(flag, nargs="*", help=argparse.SUPPRESS,
+                            dest="not_ported_" + flag[2:].replace("-", "_"))
+    args = parser.parse_args(argv)
+    for flag in NOT_PORTED:
+        if getattr(args, "not_ported_" + flag[2:].replace("-", "_")) is not None:
+            parser.error(f"{flag} is not ported to srl_tpu_torch yet; use "
+                         "srl_tpu.experiments.train for it")
+    return args
+
+
+def make_run_dir(args) -> str:
+    base = os.path.join(args.log_dir, args.env, args.srl_model, args.algo,
+                        datetime.now().strftime("%y-%m-%d_%Hh%M_%S"))
+    log_dir, n = base, 1
+    while True:
+        try:
+            os.makedirs(log_dir)
+            return log_dir
+        except FileExistsError:
+            n += 1
+            log_dir = f"{base}_{n}"
+
+
+def save_env_params(log_dir: str, env) -> None:
+    params = {}
+    for k, v in vars(env).items():
+        if isinstance(v, (int, float, bool, str, list, tuple)):
+            params[k] = v
+        elif isinstance(v, np.ndarray):
+            params[k] = v.tolist()
+    with open(os.path.join(log_dir, "env_globals.json"), "w") as f:
+        json.dump(params, f, indent=2, default=str)
+
+
+def make_callback(log_dir: str, args, monitor: MonitorWriter, algo):
+    """Monitor CSV rows, best-model saving and one metrics.jsonl line per
+    update (the losses included)."""
+    state = {"best": -1e4, "n_logged": 0}
+    metrics_path = os.path.join(log_dir, "metrics.jsonl")
+
+    def callback(_locals, _globals):
+        ep_returns = _locals["episode_returns"]
+        ep_lengths = _locals["episode_lengths"]
+        while state["n_logged"] < len(ep_returns):
+            i = state["n_logged"]
+            monitor.write_episode(ep_returns[i], ep_lengths[i])
+            state["n_logged"] += 1
+
+        update = _locals["update"]
+        if len(ep_returns) >= MIN_EPISODES_BEFORE_SAVE:
+            mean_reward = float(np.mean(ep_returns[-N_EPISODES_EVAL:]))
+            if mean_reward > state["best"]:
+                state["best"] = mean_reward
+                printGreen(f"Saving new best model: mean reward {mean_reward:.2f} "
+                           f"over last {N_EPISODES_EVAL} episodes")
+                _locals["self"].save(os.path.join(log_dir, f"{args.algo}_model.pkl"))
+
+        window = ep_returns[-40:]
+        entry = {
+            "update": update,
+            "num_timesteps": _locals["num_timesteps"],
+            "n_episodes": len(ep_returns),
+            "mean_reward": float(np.mean(window)) if window else None,
+            "fps": _locals["fps"],
+            **_locals["metrics"],
+        }
+        with open(metrics_path, "a") as f:
+            f.write(json.dumps(entry) + "\n")
+        if (update + 1) % algo.LOG_INTERVAL == 0 or update + 1 == _locals["n_updates"]:
+            mean = entry["mean_reward"]
+            printGreen(f"update {update + 1}/{_locals['n_updates']}  "
+                       f"steps {entry['num_timesteps']}  episodes {entry['n_episodes']}  "
+                       f"mean reward {mean if mean is not None else float('nan'):.2f}  "
+                       f"{entry['fps']:.0f} steps/s")
+
+    return callback
+
+
+def main(argv=None) -> str:
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    # Stated, not inherited: float32 matmuls and convolutions stay full
+    # float32 (the policy's convs and fc512 run in bfloat16 by design).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    log_dir = make_run_dir(args)
+    printGreen(f"Log dir: {log_dir}")
+    with open(os.path.join(log_dir, "args.json"), "w") as f:
+        json.dump({k: v for k, v in vars(args).items()
+                   if not k.startswith("not_ported_")}, f, indent=2)
+
+    env = make_env(args.env, srl_model=args.srl_model,
+                   is_discrete=not args.continuous_actions,
+                   render_scale=args.render_scale, coarse_obs=args.coarse_obs)
+    save_env_params(log_dir, env)
+    agent = PPO2(env=env, num_envs=args.num_envs, device=device)
+
+    monitor = MonitorWriter(log_dir, env_id=args.env)
+    callback = make_callback(log_dir, args, monitor, agent)
+    t0 = time.time()
+    # 1.1x so that the last save interval fits (the reference's inflation).
+    agent.learn(int(args.num_timesteps * 1.1), seed=args.seed, callback=callback)
+    printGreen(f"Training done in {time.time() - t0:.1f}s")
+    agent.save(os.path.join(log_dir, f"{args.algo}_final_model.pkl"))
+    monitor.close()
+    return log_dir
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,40 @@
+"""The port stands alone: no module of srl_tpu_torch, and not chip_smoke.py,
+imports JAX, Flax, Optax or the reference package; and its entry points run
+on the card unless the caller asks for the CPU."""
+import ast
+import pathlib
+
+import pytest
+import torch
+
+from srl_tpu_torch.agents.ppo import PPO2
+from srl_tpu_torch.envs.kuka import KukaButtonEnv
+from srl_tpu_torch.experiments import train
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "srl_tpu"}
+SOURCES = sorted((REPO / "srl_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def imported_roots(path: pathlib.Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_reference_imports(path):
+    assert not imported_roots(path) & FORBIDDEN
+
+
+def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--num-envs", "2", "--log-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PPO2(env=KukaButtonEnv(), num_envs=2)
+    assert not any(tmp_path.iterdir())
