@@ -5,17 +5,22 @@
 
 Phases, each reported on its own lines; any failure exits non-zero:
 
-1. build the CUDA ray tracer (srl_tpu_torch/csrc/render3d.cu) from the
-   checkout with nvcc;
-2. hold the kernel against its plain PyTorch twin on the card for every
-   render configuration of the slice (agreement: over 99.5% of the values
-   equal and under 0.5% off by more than 2);
-3. time the kernel and the twin per render call at the main path's shape
-   (256 envs, 112x112 coarse trace) with CUDA events;
-4. drive the main path through the training CLI, PPO2 on
-   KukaButtonGymEnv-v0 from raw pixels (256 envs, render scale 2, coarse
-   observations, 3 updates of 256 x 128 steps), with the launch counts set
-   to 0 just before and read just after, and check the run's outputs.
+1. build both CUDA kernels from the checkout with nvcc, in parallel: the
+   Kuka ray tracer (srl_tpu_torch/csrc/render3d.cu) and the MobileRobot
+   sprite compositor (srl_tpu_torch/csrc/render2d.cu);
+2. hold each kernel against its plain PyTorch twin on the card: render3d on
+   every Kuka render configuration (agreement: over 99.5% of the values
+   equal and under 0.5% off by more than 2), render2d bit for bit on the
+   four MobileRobot variants at 256 envs x 224x224, reset and after 20
+   steps, and on the top-down half of the 6-channel first-person output;
+3. time each kernel and its twin with CUDA events at its main path's shape
+   and compute the bound from the kernel's code;
+4. drive the main paths through the training CLI, each with the launch
+   counts set to 0 just before and read just after, and check their
+   outputs: PPO2 on KukaButtonGymEnv-v0 from raw pixels (256 envs, render
+   scale 2, coarse observations, 2 updates), PPO2 on MobileRobotGymEnv-v0
+   from 224x224 raw pixels (256 envs, 3 updates), and the ground-truth
+   quickstart (4096 envs, 2 updates).
 
 The line before the last is a JSON object with each kernel's numbers, the
 last ``{"ok": true, "device": {...}}``. Needs the card and the rest of the
@@ -28,6 +33,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -36,7 +42,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
-# (env class, kwargs, N): the render configurations of the slice.
+# (env class, kwargs, N): the Kuka render configurations.
 RENDER_CASES = [
     ("KukaButtonEnv", dict(render_scale=1), 64),
     ("KukaButtonEnv", dict(render_scale=2, coarse_obs=True), 256),
@@ -44,9 +50,27 @@ RENDER_CASES = [
     ("Kuka2ButtonEnv", dict(render_scale=1), 64),
     ("KukaButtonEnv", dict(render_scale=2, multi_view=True), 64),
 ]
-MAIN_ARGS = ["--env", "KukaButtonGymEnv-v0", "--srl-model", "raw_pixels",
+# (env class, kwargs, N): the MobileRobot render configurations; the first
+# is the main path's.
+RENDER2D_CASES = [
+    ("MobileRobotEnv", {}, 256),
+    ("MobileRobotEnv", dict(random_target=True), 256),
+    ("MobileRobot1DEnv", dict(random_target=True), 256),
+    ("MobileRobot2TargetEnv", dict(random_target=True), 256),
+    ("MobileRobotLineTargetEnv", dict(random_target=True), 256),
+    ("MobileRobotEnv", dict(fpv=True, random_target=True), 64),
+]
+KUKA_ARGS = ["--env", "KukaButtonGymEnv-v0", "--srl-model", "raw_pixels",
              "--algo", "ppo2", "--num-envs", "256", "--render-scale", "2",
-             "--coarse-obs", "--num-timesteps", "90000", "--no-vis"]
+             "--coarse-obs", "--num-timesteps", "60000", "--no-vis"]
+MOBILE_ARGS = ["--env", "MobileRobotGymEnv-v0", "--srl-model", "raw_pixels",
+               "--algo", "ppo2", "--num-envs", "256", "--num-timesteps", "90000",
+               "--no-vis"]
+QUICKSTART_ARGS = ["--env", "MobileRobotGymEnv-v0", "--srl-model", "ground_truth",
+                   "--algo", "ppo2", "--num-envs", "4096", "--num-timesteps", "960000",
+                   "--no-vis"]
+RUN_FILES = ("args.json", "env_globals.json", "0.monitor.csv", "metrics.jsonl",
+             "ppo2_final_model.pkl")
 
 
 def log(msg: str) -> None:
@@ -63,24 +87,50 @@ def render_flops_per_pixel(cfg) -> int:
     return 25 * 2 * cfg.n_buttons + 28 * (cfg.n_pts - 1) + 11 * n_spheres + 16
 
 
+def bound_ms(flops: float, n_bytes: float) -> tuple:
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
 def render_bound_ms(cfg, scene) -> tuple:
     n, views = scene.shape[0], len(cfg.views)
     pixels = cfg.trace_h * cfg.trace_w
     flops = render_flops_per_pixel(cfg) * n * pixels * views
     out_bytes = n * pixels * cfg.up * cfg.up * 3 * views
     in_bytes = scene.numel() * 4 + views * 10 * pixels * 4  # scene, rays, bg
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
-    t_bytes = (out_bytes + in_bytes) / PEAK_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    return bound_ms(flops, out_bytes + in_bytes)
+
+
+def render2d_flops_per_pixel(env) -> int:
+    """Float32 operations of csrc/render2d.cu per pixel: the target disk 6
+    (2 subtractions, 2 products, 1 sum, 1 compare) or the line band 4, the
+    second disk 6, the body box 4 and the wheel pads 4 (2 subtractions and
+    2 compares each); absolute values are free operand modifiers."""
+    first = 4 if env.line_target else 6
+    second = 6 if env.n_targets > 1 and not env.line_target else 0
+    return first + second + 4 + 4
+
+
+def render2d_bound_ms(env, n) -> tuple:
+    h, w = env.render_shape
+    flops = render2d_flops_per_pixel(env) * n * h * w
+    out_bytes = n * h * w * 3  # channels 0-2
+    in_bytes = h * w * 4 + (h + w) * 4 + n * 8 * 4  # background, xs, ys, scene
+    return bound_ms(flops, out_bytes + in_bytes)
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Device time per call. The stream first sleeps for 50 ms, so that the
+    host has queued every launch before the first one runs and host-side
+    launch cost does not show up as gaps between them."""
     import torch
 
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(int(50e-3 * 2e9))
     start.record()
     for _ in range(iters):
         fn()
@@ -89,44 +139,26 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    if not os.path.isdir(os.path.join(REPO, "srl_tpu_torch")):
-        print("chip_smoke: srl_tpu_torch/ is not beside this script", file=sys.stderr)
-        return 1
-    sys.path.insert(0, REPO)
-    from srl_tpu_torch.envs import kuka
-    from srl_tpu_torch.experiments import train
-    from srl_tpu_torch.ops import cuda_build, render3d
-
-    dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    log(f"torch {torch.__version__} cuda {torch.version.cuda}; allow_tf32: "
-        f"matmul={torch.backends.cuda.matmul.allow_tf32} "
-        f"cudnn={torch.backends.cudnn.allow_tf32}")
-
-    # 1. Build.
+def build_kernels(cuda_build) -> None:
+    """One nvcc per source, all started together."""
     t0 = time.perf_counter()
-    path = cuda_build.build("render3d")
-    info = cuda_build.BUILD_INFO["render3d"]
-    log(f"[build] {os.path.relpath(path, REPO)}: nvcc {info['seconds']:.1f} s"
-        + (" (found built)" if not info["log"] else "")
-        + f", {time.perf_counter() - t0:.1f} s in all")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    names = ("render3d", "render2d")
+    with ThreadPoolExecutor(len(names)) as pool:
+        paths = dict(zip(names, pool.map(cuda_build.build, names)))
+    for name in names:
+        info = cuda_build.BUILD_INFO[name]
+        log(f"[build] {os.path.relpath(paths[name], REPO)}: nvcc {info['seconds']:.1f} s"
+            + (" (found built)" if not info["log"] else ""))
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+    log(f"[build] both kernels in {time.perf_counter() - t0:.1f} s")
 
-    # 2. Kernel against the twin.
-    max_err = 0
-    main_inputs = None
+
+def compare_render3d(torch, dev, kuka, render3d):
+    """Kernel against twin on every Kuka configuration: (max |diff|, the
+    main path's inputs)."""
+    max_err, main_inputs = 0, None
     for name, kwargs, n in RENDER_CASES:
         env = getattr(kuka, name)(srl_model="raw_pixels", **kwargs)
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -144,63 +176,167 @@ def main() -> int:
         equal = (diff == 0).double().mean().item()
         off = (diff > 2).double().mean().item()
         max_err = max(max_err, int(diff.max()))
-        log(f"[compare] {name} {kwargs} N={n} {tuple(out.shape)}: {equal:.6f} equal, "
-            f"{off:.6f} off by more than 2, max |diff| {int(diff.max())}")
+        log(f"[compare] render3d {name} {kwargs} N={n} {tuple(out.shape)}: {equal:.6f} "
+            f"equal, {off:.6f} off by more than 2, max |diff| {int(diff.max())}")
         if not (equal > 0.995 and off < 0.005):
             raise AssertionError(f"render3d kernel disagrees with the twin for {name} {kwargs}")
         if kwargs == dict(render_scale=2, coarse_obs=True):
             main_inputs = (cfg, scene, eyes, rays, bg)
+    return max_err, main_inputs
 
-    # 3. Time kernel and twin at the main path's shape.
-    cfg, scene, eyes, rays, bg = main_inputs
-    kernel_ms = time_ms(lambda: render3d.render_kuka_cuda(cfg, scene, eyes, rays, bg), 200)
-    plain_ms = time_ms(lambda: render3d.render_kuka_plain(cfg, scene, eyes, rays, bg), 5, 1)
-    bound_ms, bound_by = render_bound_ms(cfg, scene)
-    log(f"[time] render3d N={scene.shape[0]} trace {cfg.trace_h}x{cfg.trace_w}: kernel "
-        f"{kernel_ms:.4f} ms, twin {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}; {render_flops_per_pixel(cfg)} flop/pixel); no single PyTorch "
-        f"call computes this function, so library_ms is null")
 
-    # 4. The main path.
+def compare_render2d(torch, dev, mobile_robot, render2d):
+    """Kernel against twin, bit for bit, on every MobileRobot configuration,
+    reset and after 20 steps: (max |diff|, the main path's env and inputs)."""
+    max_err, main_inputs = 0, None
+    for name, kwargs, n in RENDER2D_CASES:
+        env = getattr(mobile_robot, name)(srl_model="raw_pixels", **kwargs)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        states = env.reset(gen, n)
+        for n_steps in (0, 20):
+            for _ in range(n_steps):
+                states, _, _ = env.step(states, env.action_space.sample(gen, n), gen)
+            render2d.launches = 0
+            out = render2d.render_mobile_robot(env, states)
+            if render2d.launches != 1:
+                raise AssertionError(f"render2d {name}: the kernel was not launched")
+            scene = render2d.scene_params(env, states)
+            inputs = (scene,) + render2d.static_tensors(env.dim, *env.render_shape, dev)
+            plain = render2d.render_mobile_robot_plain(*inputs)
+            torch.cuda.synchronize()
+            top = out[..., :3]
+            if top.shape != plain.shape or out.shape[-1] != (6 if env.fpv else 3):
+                raise AssertionError(f"render2d {name}: {tuple(out.shape)} vs "
+                                     f"{tuple(plain.shape)}")
+            err = int((top.to(torch.int32) - plain.to(torch.int32)).abs().max())
+            max_err = max(max_err, err)
+            log(f"[compare] render2d {name} {kwargs} N={n} after {n_steps} steps "
+                f"{tuple(out.shape)}: max |diff| {err} over {top.numel()} values")
+            if err:
+                raise AssertionError(f"render2d kernel differs from the twin for {name}")
+            if main_inputs is None:
+                main_inputs = (env, inputs)
+    return max_err, main_inputs
+
+
+def drive(torch, train, argv, counters, what):
+    """Run the CLI with every launch count set to 0 just before; returns
+    (seconds, launches per kernel, metrics lines)."""
     with tempfile.TemporaryDirectory() as tmp:
-        render3d.launches = 0
+        for module in counters.values():
+            module.launches = 0
         t0 = time.perf_counter()
-        log_dir = train.main(MAIN_ARGS + ["--log-dir", tmp, "--device", "cuda"])
+        log_dir = train.main(argv + ["--log-dir", tmp, "--device", "cuda"])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = render3d.launches
-        for f in ("args.json", "env_globals.json", "0.monitor.csv", "metrics.jsonl",
-                  "ppo2_final_model.pkl"):
+        launches = {name: module.launches for name, module in counters.items()}
+        for f in RUN_FILES:
             if not os.path.isfile(os.path.join(log_dir, f)):
-                raise AssertionError(f"run dir lacks {f}")
+                raise AssertionError(f"{what}: run dir lacks {f}")
         with open(os.path.join(log_dir, "metrics.jsonl")) as fh:
             entries = [json.loads(line) for line in fh]
-    if len(entries) != 3:
-        raise AssertionError(f"expected 3 PPO updates, got {len(entries)}")
     for e in entries:
-        for k in ("pg_loss", "vf_loss", "entropy", "approx_kl", "explained_variance"):
+        for k in ("pg_loss", "vf_loss", "entropy", "approx_kl", "explained_variance",
+                  "mean_reward_per_step"):
             if not math.isfinite(e[k]):
-                raise AssertionError(f"update {e['update']}: {k} = {e[k]}")
-    if launches <= 0:
-        raise AssertionError("the main path never launched the render3d kernel")
+                raise AssertionError(f"{what}, update {e['update']}: {k} = {e[k]}")
     steps = entries[-1]["num_timesteps"]
-    log(f"[main] 3 PPO2 updates, {steps} env steps in {seconds:.1f} s: "
-        f"{steps / seconds:.0f} env-steps/s end to end (last update's running "
-        f"rate {entries[-1]['fps']:.0f}) on {card}; render3d launches {launches}; losses "
-        f"finite: " + ", ".join(f"pg {e['pg_loss']:.4g} vf {e['vf_loss']:.4g}"
-                                for e in entries))
+    log(f"[main] {what}: {len(entries)} PPO2 updates, {steps} env steps in "
+        f"{seconds:.1f} s: {steps / seconds:.0f} env-steps/s end to end (last update's "
+        f"running rate {entries[-1]['fps']:.0f}); launches {launches}; losses finite: "
+        + ", ".join(f"pg {e['pg_loss']:.4g} vf {e['vf_loss']:.4g}" for e in entries))
+    return seconds, launches, entries
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(REPO, "srl_tpu_torch")):
+        print("chip_smoke: srl_tpu_torch/ is not beside this script", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from srl_tpu_torch.envs import kuka, mobile_robot
+    from srl_tpu_torch.experiments import train
+    from srl_tpu_torch.ops import cuda_build, render2d, render3d
+
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}; {card}; allow_tf32: "
+        f"matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}")
+    t_start = time.perf_counter()
+
+    # 1. Build.
+    build_kernels(cuda_build)
+
+    # 2. Kernels against their twins.
+    r3_err, (cfg, scene, eyes, rays, bg) = compare_render3d(torch, dev, kuka, render3d)
+    r2_err, (env2d, inputs2d) = compare_render2d(torch, dev, mobile_robot, render2d)
+
+    # 3. Times at the main paths' shapes.
+    r3_ms = time_ms(lambda: render3d.render_kuka_cuda(cfg, scene, eyes, rays, bg), 200)
+    r3_plain_ms = time_ms(lambda: render3d.render_kuka_plain(cfg, scene, eyes, rays, bg), 5, 1)
+    r3_bound, r3_by = render_bound_ms(cfg, scene)
+    log(f"[time] render3d N={scene.shape[0]} trace {cfg.trace_h}x{cfg.trace_w}: kernel "
+        f"{r3_ms:.4f} ms, twin {r3_plain_ms:.3f} ms, bound {r3_bound:.4f} ms "
+        f"({r3_by}; {render_flops_per_pixel(cfg)} flop/pixel); no single PyTorch "
+        f"call computes this function, so library_ms is null")
+    n2d = inputs2d[0].shape[0]
+    h2d, w2d = env2d.render_shape
+    r2_ms = time_ms(lambda: render2d.render_mobile_robot_cuda(*inputs2d), 500)
+    r2_plain_ms = time_ms(lambda: render2d.render_mobile_robot_plain(*inputs2d), 20, 2)
+    r2_bound, r2_by = render2d_bound_ms(env2d, n2d)
+    log(f"[time] render2d N={n2d} {h2d}x{w2d}: kernel {r2_ms:.4f} ms, twin "
+        f"{r2_plain_ms:.3f} ms, bound {r2_bound:.4f} ms ({r2_by}; "
+        f"{render2d_flops_per_pixel(env2d)} flop/pixel, {n2d * h2d * w2d * 3} bytes "
+        f"out); no single PyTorch call computes this function, so library_ms is null")
+
+    # 4. The main paths, each with the counts set to 0 just before it.
+    counters = {"render3d": render3d, "render2d": render2d}
+    _, kuka_launches, _ = drive(torch, train, KUKA_ARGS, counters,
+                                "KukaButtonGymEnv-v0 raw_pixels 256 envs")
+    if kuka_launches["render3d"] <= 0:
+        raise AssertionError("the Kuka pixel path never launched the render3d kernel")
+    _, mobile_launches, _ = drive(torch, train, MOBILE_ARGS, counters,
+                                  "MobileRobotGymEnv-v0 raw_pixels 224x224 256 envs")
+    if mobile_launches["render2d"] <= 0:
+        raise AssertionError("the MobileRobot pixel path never launched the render2d kernel")
+    _, _, entries = drive(torch, train, QUICKSTART_ARGS, counters,
+                          "MobileRobotGymEnv-v0 ground_truth 4096 envs")
+    log("[main] quickstart mean reward per env step, by update: "
+        + ", ".join(f"{e['mean_reward_per_step']:.5f}" for e in entries))
+    log(f"[done] {time.perf_counter() - t_start:.1f} s after start-up")
 
     print(json.dumps({"kernels": [{
         "name": "render3d",
         "route": "cuda",
         "source": "srl_tpu_torch/csrc/render3d.cu",
         "replaces": "srl_tpu/ops/pallas_render3d.py:480",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "launches": kuka_launches["render3d"],
+        "max_abs_err": r3_err,
+        "ms": r3_ms,
+        "plain_ms": r3_plain_ms,
+        "bound_ms": r3_bound,
+        "bound_by": r3_by,
+        "library_ms": None,
+    }, {
+        "name": "render2d",
+        "route": "cuda",
+        "source": "srl_tpu_torch/csrc/render2d.cu",
+        "replaces": "srl_tpu/ops/pallas_render.py:111",
+        "launches": mobile_launches["render2d"],
+        "max_abs_err": r2_err,
+        "ms": r2_ms,
+        "plain_ms": r2_plain_ms,
+        "bound_ms": r2_bound,
+        "bound_by": r2_by,
         "library_ms": None,
     }]}))
     print(card)

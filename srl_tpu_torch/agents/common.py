@@ -11,6 +11,7 @@ import torch
 
 from srl_tpu_torch.core.env import VecEnv, VecEnvState
 from srl_tpu_torch.core.normalize import RunningNorm
+from srl_tpu_torch.core.numerics import fma
 
 
 @dataclasses.dataclass
@@ -60,13 +61,6 @@ def collect_rollout(
     return vstate, obs, obs_norm, last_norm_obs, batch
 
 
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """a * b + c rounded once to float32, as the fused multiply-adds that
-    XLA forms from the reference's expressions: the float32 product is exact
-    in float64."""
-    return (a.double() * b.double() + c.double()).to(torch.float32)
-
-
 def compute_gae(rewards, values, dones, last_value, gamma: float, lam: float):
     """Generalized advantage estimation over [T, N]; a done at step t cuts
     the bootstrap from t + 1. Returns (advantages, returns)."""
@@ -75,8 +69,8 @@ def compute_gae(rewards, values, dones, last_value, gamma: float, lam: float):
     advantages = [None] * rewards.shape[0]
     for t in reversed(range(rewards.shape[0])):
         not_done = 1.0 - dones[t].to(torch.float32)
-        delta = _fma(gamma * value_next, not_done, rewards[t]) - values[t]
-        gae = _fma(gamma * lam * not_done, gae, delta)
+        delta = fma(gamma * value_next, not_done, rewards[t]) - values[t]
+        gae = fma(gamma * lam * not_done, gae, delta)
         advantages[t] = gae
         value_next = values[t]
     advantages = torch.stack(advantages)

@@ -7,8 +7,9 @@
 * ``load_jax_checkpoint`` reads the pickles the reference agents write
   (``{"name", "config", "num_envs", "policy_kind", "normalize_obs",
   "params", "obs_norm"}``) and the port writes the same format.
-* ``kuka_state_from_numpy`` turns a batched reference ``KukaState`` (as a
-  dict of numpy arrays) into the port's ``KukaState``.
+* ``state_from_numpy`` turns a batched reference env state (as a dict of
+  numpy arrays) into the port's dataclass (``kuka_state_from_numpy`` for
+  ``KukaState``).
 
 This module imports neither package's framework beyond torch and numpy; the
 tests hand it the reference's arrays.
@@ -105,13 +106,18 @@ def load_jax_checkpoint(path: str) -> dict:
     return payload
 
 
+def state_from_numpy(cls, arrays: Dict[str, np.ndarray], device="cpu"):
+    """Batched reference env state fields (numpy, leading dim N) -> the
+    port's state dataclass ``cls``. The reference's per-env PRNG ``key`` has
+    no counterpart and is dropped."""
+    return cls(**{
+        f.name: torch.as_tensor(np.array(arrays[f.name]), device=device)
+        for f in dataclasses.fields(cls)
+    })
+
+
 def kuka_state_from_numpy(arrays: Dict[str, np.ndarray], device="cpu"):
-    """Batched reference ``KukaState`` fields (numpy, leading dim N) -> the
-    port's ``KukaState``. The reference's per-env PRNG ``key`` has no
-    counterpart and is dropped."""
+    """A batched reference ``KukaState`` -> the port's ``KukaState``."""
     from srl_tpu_torch.envs.kuka import KukaState
 
-    return KukaState(**{
-        f.name: torch.as_tensor(np.array(arrays[f.name]), device=device)
-        for f in dataclasses.fields(KukaState)
-    })
+    return state_from_numpy(KukaState, arrays, device)

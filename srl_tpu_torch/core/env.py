@@ -43,10 +43,14 @@ class VecEnvState:
 
 def state_where(mask: torch.Tensor, a, b):
     """Field by field ``where(mask, a, b)`` over two batched state
-    dataclasses; ``mask`` is [N] bool."""
+    dataclasses, recursing into fields that are state dataclasses themselves
+    (a wrapper's inner state); ``mask`` is [N] bool."""
     out = {}
     for f in dataclasses.fields(a):
         x, y = getattr(a, f.name), getattr(b, f.name)
+        if dataclasses.is_dataclass(x):
+            out[f.name] = state_where(mask, x, y)
+            continue
         m = mask.reshape(mask.shape + (1,) * (x.dim() - 1))
         out[f.name] = torch.where(m, x, y)
     return type(a)(**out)
@@ -85,7 +89,9 @@ class BatchedEnv(abc.ABC):
 
     @abc.abstractmethod
     def target_pos(self, state) -> torch.Tensor:
-        """[N, 3] position of the current target."""
+        """[N, d] position of the current target, in the coordinates that
+        ``srl_state`` subtracts: [N, 3] for Kuka, [N, 2] for MobileRobot,
+        [N, 1] for its 1D and line-target variants."""
 
     @property
     @abc.abstractmethod

@@ -4,6 +4,12 @@ from srl_tpu_torch.envs.kuka import (
     KukaMovingButtonEnv,
     KukaRandButtonEnv,
 )
+from srl_tpu_torch.envs.mobile_robot import (
+    MobileRobot1DEnv,
+    MobileRobot2TargetEnv,
+    MobileRobotEnv,
+    MobileRobotLineTargetEnv,
+)
 from srl_tpu_torch.envs.registry import make_env, registered_env
 
 __all__ = [
@@ -11,6 +17,10 @@ __all__ = [
     "KukaRandButtonEnv",
     "Kuka2ButtonEnv",
     "KukaMovingButtonEnv",
+    "MobileRobotEnv",
+    "MobileRobot1DEnv",
+    "MobileRobot2TargetEnv",
+    "MobileRobotLineTargetEnv",
     "registered_env",
     "make_env",
 ]

@@ -9,9 +9,17 @@ from srl_tpu_torch.envs.kuka import (
     KukaMovingButtonEnv,
     KukaRandButtonEnv,
 )
+from srl_tpu_torch.envs.mobile_robot import (
+    MobileRobot1DEnv,
+    MobileRobot2TargetEnv,
+    MobileRobotEnv,
+    MobileRobotLineTargetEnv,
+)
 
 registered_env: Registry = Registry("env")
-for _cls in (KukaButtonEnv, KukaRandButtonEnv, Kuka2ButtonEnv, KukaMovingButtonEnv):
+for _cls in (KukaButtonEnv, KukaRandButtonEnv, Kuka2ButtonEnv, KukaMovingButtonEnv,
+             MobileRobotEnv, MobileRobot1DEnv, MobileRobot2TargetEnv,
+             MobileRobotLineTargetEnv):
     registered_env.register(_cls.name, _cls)
 
 

@@ -1,8 +1,10 @@
-"""Where the time of one PPO2 update goes on the card, for the slice's main
-path (KukaButtonGymEnv-v0 from raw pixels, render scale 2, coarse
-observations, the Nature CNN).
+"""Where the time of one PPO2 update goes on the card, for a main path of
+the port: by default KukaButtonGymEnv-v0 from raw pixels (render scale 2,
+coarse observations, the Nature CNN); ``--env MobileRobotGymEnv-v0`` gives
+the MobileRobot pixel run (224x224 frames from the sprite compositor).
 
-    python -m srl_tpu_torch.experiments.profile_slice [--num-envs 256]
+    python -m srl_tpu_torch.experiments.profile_slice [--env ENV_ID]
+        [--srl-model raw_pixels|ground_truth] [--num-envs 256]
 
 After one warm-up update it reports, on the host clock with the device
 synchronised around each part:
@@ -13,8 +15,8 @@ synchronised around each part:
   sampling), each timed over 128 steps with a synchronise between parts
   (auto-resets left out);
 * under ``torch.profiler``, one more update: device time by kernel (top 12),
-  kernel launches per update, and the device's busy and idle share of the
-  update's wall time.
+  kernel launches per update and per env step, and the device's busy and
+  idle share of the update's wall time.
 
 The last line is one JSON object with the same numbers. Needs a card.
 """
@@ -28,7 +30,8 @@ import time
 import torch
 
 from srl_tpu_torch.agents.ppo import PPO2
-from srl_tpu_torch.envs.kuka import KukaButtonEnv
+from srl_tpu_torch.envs.registry import make_env, registered_env
+from srl_tpu_torch.experiments.train import accepted_kwargs
 
 
 def _sync_time(fn):
@@ -61,6 +64,10 @@ def rollout_split(agent: PPO2, state, gen, n_steps: int) -> dict:
 
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--env", default="KukaButtonGymEnv-v0",
+                        choices=list(registered_env.keys()))
+    parser.add_argument("--srl-model", default="raw_pixels",
+                        choices=["raw_pixels", "ground_truth"])
     parser.add_argument("--num-envs", type=int, default=256)
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
@@ -69,7 +76,10 @@ def main(argv=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    env = KukaButtonEnv(srl_model="raw_pixels", render_scale=2, coarse_obs=True)
+    # Kuka's main path traces at render scale 2 with coarse observations;
+    # the MobileRobot envs take neither option.
+    options = dict(srl_model=args.srl_model, render_scale=2, coarse_obs=True)
+    env = make_env(args.env, **accepted_kwargs(registered_env[args.env], options))
     agent = PPO2(env=env, num_envs=args.num_envs, device="cuda")
     agent.n_updates = 3
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -101,6 +111,8 @@ def main(argv=None) -> dict:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     result = {
         "card": smi.splitlines()[0],
+        "env": args.env,
+        "srl_model": args.srl_model,
         "num_envs": args.num_envs,
         "update_s": t_update,
         "rollout_s": t_rollout,
@@ -111,15 +123,17 @@ def main(argv=None) -> dict:
         "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1.0 - busy_us / 1e6 / t_prof,
         "kernel_launches_per_update": launches,
+        "kernel_launches_per_env_step": launches / n_steps,
         "top_kernels_ms": {e.key[:80]: dev_us(e) / 1e3 for e in top},
     }
-    print(f"card: {result['card']}")
+    print(f"card: {result['card']}; {args.env} {args.srl_model}, {args.num_envs} envs")
     print(f"update {t_update:.3f} s = rollout {t_rollout:.3f} s + epochs "
           f"{t_update - t_rollout:.3f} s; {result['env_steps_per_s']:.0f} env-steps/s")
     print("rollout split (s over 128 steps, synchronised): "
           + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
     print(f"profiled update {t_prof:.3f} s: device busy {busy_us / 1e6:.3f} s, idle "
-          f"share {result['device_idle_share']:.3f}, {launches} kernel launches")
+          f"share {result['device_idle_share']:.3f}, {launches} kernel launches "
+          f"({launches / n_steps:.1f} per env step)")
     for name, ms in result["top_kernels_ms"].items():
         print(f"  {ms:9.2f} ms  {name}")
     print(json.dumps(result))

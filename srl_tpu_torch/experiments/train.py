@@ -1,21 +1,26 @@
 """Training entry point (counterpart of srl_tpu/experiments/train.py).
 
 The port's subset of the reference CLI: ``--algo ppo2`` on the four Kuka
-envs with ``--srl-model raw_pixels|ground_truth``. The run directory has the
+and the four MobileRobot envs with ``--srl-model raw_pixels|ground_truth``,
+optionally with ``--num-stack`` frames. Every env gets the options it takes
+(found by signature, as the reference does). The run directory has the
 reference's layout, ``{log-dir}/{env}/{srl_model}/{algo}/{datetime}/`` with
 ``args.json``, ``env_globals.json``, ``0.monitor.csv``, ``metrics.jsonl``,
 ``ppo2_model.pkl`` (best mean reward over the last 100 episodes, once 100
 have finished) and ``ppo2_final_model.pkl``; the reference's
 ``srl_tpu.agents.ppo.PPO2.load`` reads both checkpoints.
 
-Usage (the README's pixel run):
+Usage (the README's pixel run, and the quickstart):
   python -m srl_tpu_torch.experiments.train --env KukaButtonGymEnv-v0 \\
       --srl-model raw_pixels --algo ppo2 --num-envs 256 --render-scale 2 \\
       --coarse-obs
+  python -m srl_tpu_torch.experiments.train --env MobileRobotGymEnv-v0 \\
+      --srl-model ground_truth --algo ppo2 --num-envs 4096
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import time
@@ -26,6 +31,7 @@ import torch
 
 from srl_tpu_torch.agents.ppo import PPO2
 from srl_tpu_torch.core.device import resolve_device
+from srl_tpu_torch.core.frame_stack import FrameStack
 from srl_tpu_torch.envs.registry import make_env, registered_env
 from srl_tpu_torch.utils.logging import printGreen
 from srl_tpu_torch.utils.monitor import MonitorWriter
@@ -35,12 +41,12 @@ N_EPISODES_EVAL = 100
 
 # Reference flags this port does not have yet (see ROADMAP.md).
 NOT_PORTED = ("--recompute-obs", "--remat-policy", "--updates-per-call", "--resume",
-              "--num-stack", "--mixed-envs", "--load-rl-model-path", "--hyperparam")
+              "--mixed-envs", "--load-rl-model-path", "--hyperparam")
 
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(
-        description="Train PPO2 on the Kuka envs (PyTorch port)")
+        description="Train PPO2 on the Kuka and MobileRobot envs (PyTorch port)")
     parser.add_argument("--algo", default="ppo2", choices=["ppo2"])
     parser.add_argument("--env", default="KukaButtonGymEnv-v0",
                         choices=list(registered_env.keys()))
@@ -49,12 +55,16 @@ def parse_args(argv=None):
     parser.add_argument("--num-envs", type=int, default=16)
     parser.add_argument("--num-timesteps", type=int, default=int(1e6))
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--num-stack", type=int, default=1,
+                        help="number of frames to stack")
     parser.add_argument("--render-scale", type=int, default=1, choices=[1, 2, 4, 7],
-                        help="trace at 224/s and upsample (1 = exact 224x224)")
+                        help="Kuka: trace at 224/s and upsample (1 = exact 224x224)")
     parser.add_argument("--coarse-obs", action="store_true",
                         help="with --render-scale 2: hand the traced 112x112 "
                         "image to the CNN, the upsample folded into conv1")
     parser.add_argument("-c", "--continuous-actions", action="store_true")
+    parser.add_argument("-r", "--random-target", action="store_true")
+    parser.add_argument("--shape-reward", action="store_true")
     parser.add_argument("--log-dir", default="logs/")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     parser.add_argument("--no-vis", action="store_true",
@@ -68,6 +78,40 @@ def parse_args(argv=None):
             parser.error(f"{flag} is not ported to srl_tpu_torch yet; use "
                          "srl_tpu.experiments.train for it")
     return args
+
+
+def accepted_kwargs(env_cls, kwargs: dict) -> dict:
+    """The entries of ``kwargs`` that ``env_cls`` takes. Constructors that
+    pass ``**kwargs`` on are followed up the class hierarchy, so a variant
+    such as MobileRobot1DEnv takes its base class's options."""
+    accepted = set()
+    for klass in env_cls.__mro__:
+        init = klass.__dict__.get("__init__")
+        if init is None:
+            continue
+        params = inspect.signature(init).parameters.values()
+        accepted.update(p.name for p in params if p.kind == p.POSITIONAL_OR_KEYWORD
+                        or p.kind == p.KEYWORD_ONLY)
+        if not any(p.kind == p.VAR_KEYWORD for p in params):
+            break
+    return {k: v for k, v in kwargs.items() if k in accepted}
+
+
+def build_env(args):
+    """The env of ``args.env`` with the options it takes, frame-stacked
+    when ``--num-stack`` > 1."""
+    options = {
+        "srl_model": args.srl_model,
+        "is_discrete": not args.continuous_actions,
+        "random_target": args.random_target,
+        "shape_reward": args.shape_reward,
+        "render_scale": args.render_scale,
+        "coarse_obs": args.coarse_obs,
+    }
+    env = make_env(args.env, **accepted_kwargs(registered_env[args.env], options))
+    if args.num_stack > 1:
+        env = FrameStack(env, args.num_stack)
+    return env
 
 
 def make_run_dir(args) -> str:
@@ -152,9 +196,7 @@ def main(argv=None) -> str:
         json.dump({k: v for k, v in vars(args).items()
                    if not k.startswith("not_ported_")}, f, indent=2)
 
-    env = make_env(args.env, srl_model=args.srl_model,
-                   is_discrete=not args.continuous_actions,
-                   render_scale=args.render_scale, coarse_obs=args.coarse_obs)
+    env = build_env(args)
     save_env_params(log_dir, env)
     agent = PPO2(env=env, num_envs=args.num_envs, device=device)
 

@@ -47,10 +47,6 @@ class RenderConfig:
 # is a tuple of Python floats in the twin (as in the reference kernel) and a
 # float32 tensor for the background (as in the reference's planes).
 # ---------------------------------------------------------------------------
-def _safe(d):
-    return torch.where(d.abs() < 1e-8, 1e-8, d)
-
-
 def _composite(state, t, nx, ny, nz, color):
     t_best, bnx, bny, bnz, r, g, b = state
     closer = t < t_best
@@ -69,7 +65,7 @@ def _composite(state, t, nx, ny, nz, color):
 def _hit_floor(eye, dx, dy, dz, z):
     # A tensor numerator: ``float / tensor`` would be reciprocal-then-multiply.
     num = torch.as_tensor(z - eye[2], dtype=torch.float32)
-    t = num / _safe(dz)
+    t = num / r3._safe(dz)
     return torch.where(t > 1e-4, t, BIG)
 
 
@@ -78,7 +74,7 @@ def _hit_aabb(eye, dx, dy, dz, center, half):
     t_far = torch.full_like(dx, BIG)
     nx, ny, nz = (torch.zeros_like(dx) for _ in range(3))
     for axis, d in enumerate((dx, dy, dz)):
-        inv = 1.0 / _safe(d)
+        inv = 1.0 / r3._safe(d)
         lo = (center[axis] - half[axis] - eye[axis]) * inv
         hi = (center[axis] + half[axis] - eye[axis]) * inv
         a_min = torch.minimum(lo, hi)
@@ -103,7 +99,7 @@ def _hit_vcylinder(eye, dx, dy, dz, cx, cy, radius, z_lo, z_hi):
     c = ox * ox + oy * oy - radius * radius
     disc = bq * bq - 4 * a * c
     sq = torch.sqrt(torch.clamp(disc, min=0.0))
-    t_side = (-bq - sq) / (2 * _safe(a))
+    t_side = (-bq - sq) / (2 * r3._safe(a))
     z_at = eye[2] + t_side * dz
     side_ok = (disc > 0) & (t_side > 1e-4) & (z_at >= z_lo) & (z_at <= z_hi)
     t_side = torch.where(side_ok, t_side, BIG)
@@ -150,7 +146,7 @@ def _hit_capsule_body(eye, dx, dy, dz, a, b, radius):
           - oa_dot_ba * oa_dot_ba * inv_ba_len2 - radius * radius)
     disc = bbq * bbq - 4 * aa * cc
     sq = torch.sqrt(torch.clamp(disc, min=0.0))
-    t = (-bbq - sq) / (2 * _safe(aa))
+    t = (-bbq - sq) / (2 * r3._safe(aa))
     s = (oa_dot_ba + t * d_dot_ba) * inv_ba_len2
     t = torch.where((disc > 0) & (t > 1e-4) & (s >= 0.0) & (s <= 1.0), t, BIG)
     return (t, (eye[0] + t * dx - (ax + s * bax)) * inv_r,

@@ -1,9 +1,13 @@
-"""Kuka scene constants, cameras and the nearest upsample (counterpart of
+"""Kuka scene constants, cameras, the nearest upsample, and the ray-primitive
+intersections of the MobileRobot first-person camera (counterpart of
 srl_tpu/ops/renderer3d.py).
 
-The per-primitive XLA renderer of the reference is not ported: the CUDA
+The per-primitive XLA renderer of the Kuka scene is not ported: the CUDA
 ray tracer in ``ops/render3d.py`` and its plain PyTorch twin draw every Kuka
-frame, batched or not.
+frame, batched or not. ``_hit_plane``, ``_hit_aabb`` and ``_hit_vcylinder``
+are the reference's intersections as plain tensor functions; they broadcast
+over leading axes, so an ``eye`` of [N, 1, 1, 3] against ``dirs`` [H, W, 3]
+traces a batch.
 """
 from __future__ import annotations
 
@@ -54,6 +58,66 @@ def _kuka_camera(which: str, height: int, width: int):
         "main" if which == "main" else "second"
     ]
     return pixel_rays(target, dist, yaw, pitch, roll, fov, width, height)
+
+
+def _safe(d: torch.Tensor) -> torch.Tensor:
+    return torch.where(torch.abs(d) < 1e-8, 1e-8, d)
+
+
+def _hit_plane(eye, dirs, z):
+    """Horizontal plane at height ``z``: (t, normal +z).
+
+    Here and in ``_hit_vcylinder`` a division by a function of the rays is
+    a multiplication by its reciprocal: the reference's callers bake the
+    rays in as constants, and XLA rewrites ``x / constant`` that way."""
+    t = (z - eye[..., 2]) * (1.0 / _safe(dirs[..., 2]))
+    t = torch.where(t > 1e-4, t, BIG)
+    normal = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=dirs.device)
+    return t, normal.expand(dirs.shape)
+
+
+def _hit_aabb(eye, dirs, center, half):
+    """Slab-method axis-aligned box: (t, unit normal of the entry face)."""
+    inv = 1.0 / _safe(dirs)
+    lo = (center - half - eye) * inv
+    hi = (center + half - eye) * inv
+    tmin = torch.minimum(lo, hi)
+    tmax = torch.maximum(lo, hi)
+    t_near = torch.amax(tmin, -1)
+    t_far = torch.amin(tmax, -1)
+    hit = (t_near <= t_far) & (t_far > 1e-4)
+    t = torch.where(hit & (t_near > 1e-4), t_near, BIG)
+    # The axis that reaches t_near, signed against the ray.
+    is_axis = (tmin == t_near[..., None]).to(torch.float32)
+    normal = -torch.sign(dirs) * is_axis
+    norm = torch.linalg.vector_norm(normal, dim=-1, keepdim=True)
+    return t, normal / torch.where(norm < 1e-8, 1.0, norm)
+
+
+def _hit_vcylinder(eye, dirs, center_xy, radius, z_lo, z_hi):
+    """Vertical cylinder with a top cap disk: (t, normal)."""
+    ox = eye[..., 0] - center_xy[..., 0]
+    oy = eye[..., 1] - center_xy[..., 1]
+    dx, dy = dirs[..., 0], dirs[..., 1]
+    a = dx * dx + dy * dy
+    b = 2.0 * (ox * dx + oy * dy)
+    c = ox * ox + oy * oy - radius * radius
+    disc = b * b - 4 * a * c
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    t_side = (-b - sq) * (1.0 / (2 * _safe(a)))
+    z_at = eye[..., 2] + t_side * dirs[..., 2]
+    side_ok = (disc > 0) & (t_side > 1e-4) & (z_at >= z_lo) & (z_at <= z_hi)
+    t_side = torch.where(side_ok, t_side, BIG)
+    side_n = torch.stack([(ox + t_side * dx) / radius, (oy + t_side * dy) / radius,
+                          torch.zeros_like(t_side)], -1)
+
+    t_cap, cap_n = _hit_plane(eye, dirs, z_hi)
+    px = eye[..., 0] + t_cap * dx - center_xy[..., 0]
+    py = eye[..., 1] + t_cap * dy - center_xy[..., 1]
+    t_cap = torch.where((px * px + py * py) <= radius * radius, t_cap, BIG)
+
+    use_cap = t_cap < t_side
+    return torch.minimum(t_side, t_cap), torch.where(use_cap[..., None], cap_n, side_n)
 
 
 def upsample_nearest(img: torch.Tensor, s: int) -> torch.Tensor:
