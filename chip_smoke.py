@@ -7,14 +7,19 @@ Phases, each reported on its own lines; any failure exits non-zero:
 
 1. build both CUDA kernels from the checkout with nvcc, in parallel: the
    Kuka ray tracer (srl_tpu_torch/csrc/render3d.cu) and the MobileRobot
-   sprite compositor (srl_tpu_torch/csrc/render2d.cu);
+   sprite compositor (srl_tpu_torch/csrc/render2d.cu); print each kernel's
+   registers and spills (ptxas) and its SASS instruction counts (cuobjdump);
 2. hold each kernel against its plain PyTorch twin on the card: render3d on
    every Kuka render configuration (agreement: over 99.5% of the values
-   equal and under 0.5% off by more than 2), render2d bit for bit on the
-   four MobileRobot variants at 256 envs x 224x224, reset and after 20
-   steps, and on the top-down half of the 6-channel first-person output;
-3. time each kernel and its twin with CUDA events at its main path's shape
-   and compute the bound from the kernel's code;
+   equal and under 0.5% off by more than 2), and bit-equal to its own
+   launch with culling off; render2d bit for bit on the four MobileRobot
+   variants at 256 envs x 224x224, reset and after 20 steps, and on the
+   top-down half of the 6-channel first-person output;
+3. time each kernel (over rotating outputs larger than the 50 MB L2, and
+   into one output as earlier versions were timed) and its twin with CUDA
+   events at its main path's shape, and compute the bound from the work
+   these inputs need (render3d: the (pixel, primitive) pairs its culling
+   rectangles keep);
 4. drive the main paths through the training CLI, each with the launch
    counts set to 0 just before and read just after, and check their
    outputs: PPO2 on KukaButtonGymEnv-v0 from raw pixels (256 envs, render
@@ -26,9 +31,11 @@ The line before the last is a JSON object with each kernel's numbers, the
 last ``{"ok": true, "device": {...}}``. Needs the card and the rest of the
 repository; imports nothing of JAX.
 """
+import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -41,6 +48,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # HBM bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# Timing writes into outputs that together hold more than twice the L2.
+ROTATE_BYTES = 128 << 20
 
 # (env class, kwargs, N): the Kuka render configurations.
 RENDER_CASES = [
@@ -77,14 +86,24 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def render_flops_per_pixel(cfg) -> int:
-    """Float32 operations of csrc/render3d.cu that depend on the ray, per
-    traced pixel and view: a button cylinder 25, a capsule body 28, a sphere
-    11, the shade 16 (sqrt and division count 1 each; per-env scalars and the
-    normals of hits, which depend on the data, are not counted, so the bound
-    is a lower bound)."""
-    n_spheres = cfg.n_pts + (cfg.n_distract + 1 if cfg.n_distract else 0)
-    return 25 * 2 * cfg.n_buttons + 28 * (cfg.n_pts - 1) + 11 * n_spheres + 16
+# csrc/render3d.cu's warp sub-tile, TILE_W x TILE_H traced pixels.
+SUBTILE_W, SUBTILE_H = 4, 8
+
+# Float32 operations of csrc/render3d.cu that depend on the ray, per traced
+# pixel and view: per primitive traced there, and the shade.
+PRIM_FLOPS = {"cylinder": 25, "capsule": 28, "sphere": 11}
+SHADE_FLOPS = 16
+
+
+def render_flops_per_pixel(render3d, cfg) -> int:
+    """Float32 operations per traced pixel and view when every primitive is
+    traced at every pixel, as without culling: PRIM_FLOPS of each primitive
+    plus the shade. They count the operations on the ray's components; an
+    IEEE square root or division counts as 1 (on this card each is a
+    sequence of several instructions through the MUFU pipe), and neither the
+    per-env terms, computed once per block, nor the normals of winners are
+    counted. So the bound is a lower bound."""
+    return sum(PRIM_FLOPS[k] for k in render3d.primitive_kinds(cfg)) + SHADE_FLOPS
 
 
 def bound_ms(flops: float, n_bytes: float) -> tuple:
@@ -93,13 +112,39 @@ def bound_ms(flops: float, n_bytes: float) -> tuple:
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def render_bound_ms(cfg, scene) -> tuple:
+def render_bound_ms(render3d, cfg, scene) -> dict:
+    """The bound of render3d on these inputs: the operations of the (pixel,
+    primitive) pairs that the culling rectangles keep (``kept_pixels``,
+    computed on the host from this scene) plus the shade of every pixel,
+    against the output written once plus the scene, rays and background
+    planes read once; and, for comparison, the bound without culling."""
     n, views = scene.shape[0], len(cfg.views)
     pixels = cfg.trace_h * cfg.trace_w
-    flops = render_flops_per_pixel(cfg) * n * pixels * views
+    kinds = render3d.primitive_kinds(cfg)
+    kept = sum(render3d.kept_pixels(cfg, scene, v).sum(0) for v in range(views))
+    pair_flops = sum(int(kept[i]) * PRIM_FLOPS[k] for i, k in enumerate(kinds))
     out_bytes = n * pixels * cfg.up * cfg.up * 3 * views
     in_bytes = scene.numel() * 4 + views * 10 * pixels * 4  # scene, rays, bg
-    return bound_ms(flops, out_bytes + in_bytes)
+    bound, by = bound_ms(pair_flops + SHADE_FLOPS * n * pixels * views, out_bytes + in_bytes)
+    unculled, unculled_by = bound_ms(render_flops_per_pixel(render3d, cfg) * n * pixels * views,
+                                     out_bytes + in_bytes)
+    # Sub-tiles that a rectangle meets: where the kernel traces at all.
+    import torch
+
+    ty = torch.arange(math.ceil(cfg.trace_h / SUBTILE_H), device=scene.device) * SUBTILE_H
+    tx = torch.arange(math.ceil(cfg.trace_w / SUBTILE_W), device=scene.device) * SUBTILE_W
+    busy = pairs = 0
+    for v in range(views):
+        r = render3d.cull_rects(cfg, scene, v)[..., None]
+        meets = (((r[..., 0, :] <= ty + SUBTILE_H - 1) & (r[..., 1, :] >= ty))[..., :, None]
+                 & ((r[..., 2, :] <= tx + SUBTILE_W - 1) & (r[..., 3, :] >= tx))[..., None, :])
+        busy += int(meets.any(1).sum())
+        pairs += int(meets.sum())
+    return dict(bound_ms=bound, bound_by=by, bound_unculled_ms=unculled,
+                bound_unculled_by=unculled_by, n_prims=len(kinds),
+                kept_per_pixel=float(kept.sum()) / (n * pixels * views),
+                subtiles=len(ty) * len(tx), busy_subtiles=busy / (n * views),
+                pairs_per_busy=pairs / max(busy, 1))
 
 
 def render2d_flops_per_pixel(env) -> int:
@@ -139,6 +184,41 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def rotating(torch, shape, device):
+    """An endless cycle over fresh uint8 outputs of ``shape`` that together
+    hold at least ROTATE_BYTES, so that no timed launch finds its output in
+    the L2 cache."""
+    k = max(2, math.ceil(ROTATE_BYTES / math.prod(shape)))
+    return itertools.cycle([torch.empty(shape, dtype=torch.uint8, device=device)
+                            for _ in range(k)])
+
+
+SASS_CLASSES = {"MUFU": r"MUFU", "FP32": r"F(FMA|ADD|MUL|MNMX|SETP|SEL)",
+                "LDG": r"LDG", "STG": r"STG", "LDS": r"LDS", "STS": r"STS",
+                "CTRL": r"BRA|BRX|WARPSYNC|BSYNC|BSSY"}
+
+
+def sass_counts(text: str) -> dict:
+    """Per kernel function of a ``cuobjdump -sass`` listing: its instruction
+    count (NOPs left out) and the count of each class of SASS_CLASSES."""
+    counts, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = next((k for k in ("render3d_kernel", "render2d_kernel") if k in m.group(1)),
+                      m.group(1))
+            counts[fn] = {"instructions": 0, **{k: 0 for k in SASS_CLASSES}}
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if fn is None or not m or m.group(1) == "NOP":
+            continue
+        counts[fn]["instructions"] += 1
+        for k, pattern in SASS_CLASSES.items():
+            if re.match(pattern, m.group(1)):
+                counts[fn][k] += 1
+    return counts
+
+
 def build_kernels(cuda_build) -> None:
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
@@ -153,11 +233,16 @@ def build_kernels(cuda_build) -> None:
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
     log(f"[build] both kernels in {time.perf_counter() - t0:.1f} s")
+    for name in names:
+        for fn, c in sass_counts(cuda_build.sass(name)).items():
+            log(f"[sass] {fn}: {c['instructions']} instructions, "
+                + ", ".join(f"{k} {c[k]}" for k in SASS_CLASSES))
 
 
 def compare_render3d(torch, dev, kuka, render3d):
-    """Kernel against twin on every Kuka configuration: (max |diff|, the
-    main path's inputs)."""
+    """Kernel against twin, and culled against unculled bit for bit, on
+    every Kuka configuration: (max |diff| to the twin, the main path's
+    inputs)."""
     max_err, main_inputs = 0, None
     for name, kwargs, n in RENDER_CASES:
         env = getattr(kuka, name)(srl_model="raw_pixels", **kwargs)
@@ -166,28 +251,34 @@ def compare_render3d(torch, dev, kuka, render3d):
         for _ in range(10):  # move the arm off its rest pose
             states, _, _ = env.step(states, env.action_space.sample(gen, n), gen)
         cfg, scene = render3d._scene_table(env, states)
-        eyes, rays, bg = render3d.camera_tensors(cfg, dev)
-        out = render3d.render_kuka_cuda(cfg, scene, eyes, rays, bg)
-        plain = render3d.render_kuka_plain(cfg, scene, eyes, rays, bg)
+        cam = render3d.camera_tensors(cfg, dev)
+        out = render3d.render_kuka_cuda(cfg, scene, cam)
+        unculled = render3d.render_kuka_cuda(cfg, scene, cam, cull=False)
+        plain = render3d.render_kuka_plain(cfg, scene, cam.eyes, cam.rays, cam.bg)
         torch.cuda.synchronize()
+        if not torch.equal(out, unculled):
+            raise AssertionError(f"render3d {name} {kwargs}: culling changed "
+                                 f"{int((out != unculled).sum())} values")
         if out.shape != plain.shape:
             raise AssertionError(f"{name} {kwargs}: {tuple(out.shape)} vs {tuple(plain.shape)}")
         diff = (out.to(torch.int32) - plain.to(torch.int32)).abs()
         equal = (diff == 0).double().mean().item()
         off = (diff > 2).double().mean().item()
         max_err = max(max_err, int(diff.max()))
-        log(f"[compare] render3d {name} {kwargs} N={n} {tuple(out.shape)}: {equal:.6f} "
-            f"equal, {off:.6f} off by more than 2, max |diff| {int(diff.max())}")
+        log(f"[compare] render3d {name} {kwargs} N={n} {tuple(out.shape)}: bit-equal "
+            f"to the unculled launch; against the twin {equal:.6f} equal, {off:.6f} off "
+            f"by more than 2, max |diff| {int(diff.max())}")
         if not (equal > 0.995 and off < 0.005):
             raise AssertionError(f"render3d kernel disagrees with the twin for {name} {kwargs}")
         if kwargs == dict(render_scale=2, coarse_obs=True):
-            main_inputs = (cfg, scene, eyes, rays, bg)
+            main_inputs = (cfg, scene, cam)
     return max_err, main_inputs
 
 
 def compare_render2d(torch, dev, mobile_robot, render2d):
     """Kernel against twin, bit for bit, on every MobileRobot configuration,
-    reset and after 20 steps: (max |diff|, the main path's env and inputs)."""
+    reset and after 20 steps: (max |diff|, the main path's env and kernel
+    inputs)."""
     max_err, main_inputs = 0, None
     for name, kwargs, n in RENDER2D_CASES:
         env = getattr(mobile_robot, name)(srl_model="raw_pixels", **kwargs)
@@ -201,8 +292,8 @@ def compare_render2d(torch, dev, mobile_robot, render2d):
             if render2d.launches != 1:
                 raise AssertionError(f"render2d {name}: the kernel was not launched")
             scene = render2d.scene_params(env, states)
-            inputs = (scene,) + render2d.static_tensors(env.dim, *env.render_shape, dev)
-            plain = render2d.render_mobile_robot_plain(*inputs)
+            xs, ys, bg = render2d.static_tensors(env.dim, *env.render_shape, dev)
+            plain = render2d.render_mobile_robot_plain(scene, xs, ys, bg)
             torch.cuda.synchronize()
             top = out[..., :3]
             if top.shape != plain.shape or out.shape[-1] != (6 if env.fpv else 3):
@@ -215,7 +306,8 @@ def compare_render2d(torch, dev, mobile_robot, render2d):
             if err:
                 raise AssertionError(f"render2d kernel differs from the twin for {name}")
             if main_inputs is None:
-                main_inputs = (env, inputs)
+                main_inputs = (env, (scene, xs, ys, render2d.background_rgb(
+                    env.dim, *env.render_shape, dev)))
     return max_err, main_inputs
 
 
@@ -277,26 +369,55 @@ def main() -> int:
     build_kernels(cuda_build)
 
     # 2. Kernels against their twins.
-    r3_err, (cfg, scene, eyes, rays, bg) = compare_render3d(torch, dev, kuka, render3d)
+    r3_err, (cfg, scene, cam) = compare_render3d(torch, dev, kuka, render3d)
     r2_err, (env2d, inputs2d) = compare_render2d(torch, dev, mobile_robot, render2d)
 
     # 3. Times at the main paths' shapes.
-    r3_ms = time_ms(lambda: render3d.render_kuka_cuda(cfg, scene, eyes, rays, bg), 200)
-    r3_plain_ms = time_ms(lambda: render3d.render_kuka_plain(cfg, scene, eyes, rays, bg), 5, 1)
-    r3_bound, r3_by = render_bound_ms(cfg, scene)
-    log(f"[time] render3d N={scene.shape[0]} trace {cfg.trace_h}x{cfg.trace_w}: kernel "
-        f"{r3_ms:.4f} ms, twin {r3_plain_ms:.3f} ms, bound {r3_bound:.4f} ms "
-        f"({r3_by}; {render_flops_per_pixel(cfg)} flop/pixel); no single PyTorch "
-        f"call computes this function, so library_ms is null")
+    out3 = render3d.render_kuka_cuda(cfg, scene, cam)
+    outs3 = rotating(torch, out3.shape, dev)
+    r3_ms = time_ms(lambda: render3d.render_kuka_cuda(cfg, scene, cam, out=next(outs3)), 200)
+    r3_one_ms = time_ms(lambda: render3d.render_kuka_cuda(cfg, scene, cam, out=out3), 200)
+    r3_unculled_ms = time_ms(
+        lambda: render3d.render_kuka_cuda(cfg, scene, cam, out=next(outs3), cull=False), 50)
+    # Every primitive far below the floor: what the kernel costs with nothing
+    # to trace. And a plain fill of the same outputs: what writing them costs.
+    far = torch.full_like(scene, -50.0)
+    r3_empty_ms = time_ms(lambda: render3d.render_kuka_cuda(cfg, far, cam, out=next(outs3)), 200)
+    r3_fill_ms = time_ms(lambda: next(outs3).fill_(0), 200)
+    r3_plain_ms = time_ms(
+        lambda: render3d.render_kuka_plain(cfg, scene, cam.eyes, cam.rays, cam.bg), 5, 1)
+    r3_bound = render_bound_ms(render3d, cfg, scene)
+    log(f"[bound] render3d N={scene.shape[0]} trace {cfg.trace_h}x{cfg.trace_w}: culling "
+        f"keeps {r3_bound['kept_per_pixel']:.4f} primitives per pixel of "
+        f"{r3_bound['n_prims']}; bound_ms {r3_bound['bound_ms']:.5f} "
+        f"({r3_bound['bound_by']}); bound_unculled_ms {r3_bound['bound_unculled_ms']:.5f} "
+        f"({r3_bound['bound_unculled_by']}; {render_flops_per_pixel(render3d, cfg)} "
+        f"flop/pixel); {r3_bound['busy_subtiles']:.1f} of {r3_bound['subtiles']} "
+        f"{SUBTILE_W}x{SUBTILE_H} sub-tiles per env and view hold a primitive, "
+        f"{r3_bound['pairs_per_busy']:.2f} primitives each")
+    log(f"[time] render3d: kernel {r3_ms:.4f} ms over rotating outputs "
+        f"({r3_bound['bound_ms'] / r3_ms:.1%} of the bound), {r3_one_ms:.4f} ms into one "
+        f"output, {r3_unculled_ms:.4f} ms unculled, {r3_empty_ms:.4f} ms with nothing to "
+        f"trace; fill_ of the same outputs {r3_fill_ms:.4f} ms; twin {r3_plain_ms:.3f} ms; "
+        f"no single PyTorch call computes this function, so library_ms is null")
     n2d = inputs2d[0].shape[0]
     h2d, w2d = env2d.render_shape
-    r2_ms = time_ms(lambda: render2d.render_mobile_robot_cuda(*inputs2d), 500)
-    r2_plain_ms = time_ms(lambda: render2d.render_mobile_robot_plain(*inputs2d), 20, 2)
+    out2 = render2d.render_mobile_robot_cuda(*inputs2d)
+    outs2 = rotating(torch, out2.shape, dev)
+    r2_ms = time_ms(lambda: render2d.render_mobile_robot_cuda(*inputs2d, out=next(outs2)), 500)
+    r2_one_ms = time_ms(lambda: render2d.render_mobile_robot_cuda(*inputs2d, out=out2), 500)
+    r2_fill_ms = time_ms(lambda: next(outs2).fill_(0), 500)
+    scene2d = inputs2d[0]
+    twin2d = render2d.static_tensors(env2d.dim, h2d, w2d, dev)
+    r2_plain_ms = time_ms(lambda: render2d.render_mobile_robot_plain(scene2d, *twin2d), 20, 2)
     r2_bound, r2_by = render2d_bound_ms(env2d, n2d)
-    log(f"[time] render2d N={n2d} {h2d}x{w2d}: kernel {r2_ms:.4f} ms, twin "
-        f"{r2_plain_ms:.3f} ms, bound {r2_bound:.4f} ms ({r2_by}; "
-        f"{render2d_flops_per_pixel(env2d)} flop/pixel, {n2d * h2d * w2d * 3} bytes "
-        f"out); no single PyTorch call computes this function, so library_ms is null")
+    log(f"[time] render2d N={n2d} {h2d}x{w2d}: kernel {r2_ms:.4f} ms over rotating outputs "
+        f"({r2_bound / r2_ms:.1%} of the bound, {n2d * h2d * w2d * 3 / r2_ms / 1e9:.3f} TB/s "
+        f"written), {r2_one_ms:.4f} ms into one output; fill_ of the same outputs "
+        f"{r2_fill_ms:.4f} ms; twin {r2_plain_ms:.3f} ms, bound "
+        f"{r2_bound:.4f} ms ({r2_by}; {render2d_flops_per_pixel(env2d)} flop/pixel, "
+        f"{n2d * h2d * w2d * 3} bytes out); no single PyTorch call computes this function, "
+        f"so library_ms is null")
 
     # 4. The main paths, each with the counts set to 0 just before it.
     counters = {"render3d": render3d, "render2d": render2d}
@@ -323,8 +444,8 @@ def main() -> int:
         "max_abs_err": r3_err,
         "ms": r3_ms,
         "plain_ms": r3_plain_ms,
-        "bound_ms": r3_bound,
-        "bound_by": r3_by,
+        "bound_ms": r3_bound["bound_ms"],
+        "bound_by": r3_bound["bound_by"],
         "library_ms": None,
     }, {
         "name": "render2d",

@@ -74,6 +74,17 @@ def build(name: str) -> Path:
     return out
 
 
+def sass(name: str) -> str:
+    """``cuobjdump -sass`` of the built library, or "" when the toolkit has
+    no cuobjdump."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return ""
+    proc = subprocess.run([str(tool), "-sass", str(build(name))], capture_output=True,
+                          text=True)
+    return proc.stdout if proc.returncode == 0 else ""
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built at first use."""
     lib = _LOADED.get(name)

@@ -7,8 +7,8 @@ flag) and composites, per pixel, over the packed-u32 checker-and-walls
 background of ``ops/renderer.py``: the yellow target disk (or the line
 band), the red second target, the robot body box and its four wheel pads.
 On a CUDA tensor it launches the hand-written kernel in ``csrc/render2d.cu``
-(and raises if that fails); on a CPU tensor it runs
-``render_mobile_robot_plain``. The compositor is integer selects over
+(and raises if that fails), which reads the background as RGB bytes
+(``background_rgb``); on a CPU tensor it runs ``render_mobile_robot_plain``. The compositor is integer selects over
 pre-quantized colours and float compares, so kernel, twin and the
 reference's XLA compositor agree bit for bit. The one place where rounding
 decides a pixel is the disk test ``dy2 + dx2 <= r*r``: XLA rounds ``dy2``
@@ -78,6 +78,17 @@ def static_tensors(dim: int, height: int, width: int, device):
     return _DEVICE_CONSTS[key]
 
 
+def background_rgb(dim: int, height: int, width: int, device) -> torch.Tensor:
+    """uint8 [H, W, 3] on ``device``: the background of ``static_tensors`` as
+    the bytes the kernel copies, cached."""
+    key = ("rgb", dim, height, width, str(device))
+    if key not in _DEVICE_CONSTS:
+        bg = rr._mobile_robot_static_packed(dim, height, width)[2]
+        rgb = np.ascontiguousarray(bg.view(np.uint8).reshape(height, width, 4)[..., :3])
+        _DEVICE_CONSTS[key] = torch.as_tensor(rgb, device=device)
+    return _DEVICE_CONSTS[key]
+
+
 # ---------------------------------------------------------------------------
 # The plain twin.
 # ---------------------------------------------------------------------------
@@ -131,7 +142,7 @@ def _load_kernel():
     lib = cuda_build.load("render2d")
     lib.render2d_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_int,  # scene, n
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # xs_row, ys_col, bg
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # xs_row, ys_col, bg_rgb
         ctypes.c_int, ctypes.c_int,  # height, width
         ctypes.c_void_p,  # consts (host)
         ctypes.c_void_p, ctypes.c_int,  # out, out channels
@@ -143,8 +154,9 @@ def _load_kernel():
     return lib
 
 
-def render_mobile_robot_cuda(scene, xs_row, ys_col, bg, out=None) -> torch.Tensor:
-    """Launch ``csrc/render2d.cu``. Writes channels 0-2 of ``out``, uint8
+def render_mobile_robot_cuda(scene, xs_row, ys_col, bg_rgb, out=None) -> torch.Tensor:
+    """Launch ``csrc/render2d.cu`` over the background ``bg_rgb`` (uint8
+    [H, W, 3], ``background_rgb``). Writes channels 0-2 of ``out``, uint8
     [N, H, W, C] with C >= 3 (a new [N, H, W, 3] tensor when None), and
     returns it."""
     global launches
@@ -153,7 +165,7 @@ def render_mobile_robot_cuda(scene, xs_row, ys_col, bg, out=None) -> torch.Tenso
         ("scene", scene, torch.float32, (n, SCENE_FLOATS)),
         ("xs_row", xs_row, torch.float32, (w,)),
         ("ys_col", ys_col, torch.float32, (h,)),
-        ("bg", bg, torch.int32, (h, w)),
+        ("bg_rgb", bg_rgb, torch.uint8, (h, w, 3)),
     ):
         if x.device.type != "cuda" or x.dtype != dtype or tuple(x.shape) != shape \
                 or not x.is_contiguous():
@@ -166,13 +178,13 @@ def render_mobile_robot_cuda(scene, xs_row, ys_col, bg, out=None) -> torch.Tenso
             or out.shape[3] < 3 or not out.is_contiguous():
         raise ValueError(f"render2d: out must be a contiguous uint8 [{n}, {h}, {w}, C>=3] "
                          f"tensor, got {out.dtype} {tuple(out.shape)}")
-    if not (scene.device == xs_row.device == ys_col.device == bg.device == out.device):
+    if not (scene.device == xs_row.device == ys_col.device == bg_rgb.device == out.device):
         raise ValueError("render2d: every tensor must be on one device")
     if n > 65535:
         raise ValueError(f"render2d: {n} envs not supported")
-    # The kernel reads the background 16 bytes and writes 4 bytes at a time.
-    if bg.data_ptr() % 16 or out.data_ptr() % 4:
-        raise ValueError("render2d: bg must be 16-byte and out 4-byte aligned")
+    # The kernel reads a scene row and the background 16 bytes at a time.
+    if bg_rgb.data_ptr() % 16 or scene.data_ptr() % 16:
+        raise ValueError("render2d: scene and bg_rgb must be 16-byte aligned")
     lib = _load_kernel()
     consts = _kernel_consts()
     if consts.size != lib.render2d_consts_words():
@@ -180,7 +192,7 @@ def render_mobile_robot_cuda(scene, xs_row, ys_col, bg, out=None) -> torch.Tenso
     with torch.cuda.device(scene.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.render2d_launch(
-            scene.data_ptr(), n, xs_row.data_ptr(), ys_col.data_ptr(), bg.data_ptr(),
+            scene.data_ptr(), n, xs_row.data_ptr(), ys_col.data_ptr(), bg_rgb.data_ptr(),
             h, w, consts.ctypes.data, out.data_ptr(), out.shape[3], stream)
     if err != 0:
         raise RuntimeError(f"render2d kernel launch failed: CUDA error {err}")
@@ -197,13 +209,14 @@ def render_mobile_robot(env, states) -> torch.Tensor:
     dev = scene.device.type
     if dev not in ("cuda", "cpu"):
         raise ValueError(f"render_mobile_robot: no path for device {scene.device}")
+    bg_rgb = background_rgb(env.dim, h, w, scene.device) if dev == "cuda" else None
     if not env.fpv:
         if dev == "cuda":
-            return render_mobile_robot_cuda(scene, xs, ys, bg)
+            return render_mobile_robot_cuda(scene, xs, ys, bg_rgb)
         return render_mobile_robot_plain(scene, xs, ys, bg)
     out = torch.empty((scene.shape[0], h, w, 6), dtype=torch.uint8, device=scene.device)
     if dev == "cuda":
-        render_mobile_robot_cuda(scene, xs, ys, bg, out)
+        render_mobile_robot_cuda(scene, xs, ys, bg_rgb, out)
     else:
         out[..., :3] = render_mobile_robot_plain(scene, xs, ys, bg)
     out[..., 3:] = rr.render_mobile_robot_fpv(env, states)

@@ -7,6 +7,13 @@ camera against it. On a CUDA tensor it launches the hand-written kernel in
 ``csrc/render3d.cu`` (and raises if that fails); on a CPU tensor it runs
 ``render_kuka_plain``, the same formulas as torch ops over [N, pixels].
 
+The kernel culls: each primitive gets a conservative pixel rectangle from
+its bounding sphere (``cull_rects`` is the same computation in PyTorch), and
+a warp traces only the primitives whose rectangle meets its pixels. Its
+camera-static inputs (``camera_tensors``) add to the twin's rays and
+background planes the background's shaded colour (``_background_rgb``) and
+the per-pixel terms of the button cylinders (``_button_planes``).
+
 Rounding follows the reference: where it computes a constant in Python
 doubles (``radius * radius``, ``z - eye_z``), so do the twin and the host
 side of the kernel, and the result is rounded to float32 once.
@@ -16,12 +23,13 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 from functools import lru_cache
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from srl_tpu_torch.envs import kuka as kuka_env
+from srl_tpu_torch.ops import camera
 from srl_tpu_torch.ops import kinematics as kin
 from srl_tpu_torch.ops import renderer3d as r3
 
@@ -191,25 +199,61 @@ def _camera_planes(which: str, height: int, width: int):
             dirs[..., 0], dirs[..., 1], dirs[..., 2])
 
 
+@lru_cache(maxsize=8)
+def _background_rgb(which: str, height: int, width: int) -> np.ndarray:
+    """uint8 [H * W, 3]: the background's colour, shaded as the twin shades
+    it. The kernel stores it wherever no primitive wins."""
+    _, nx, ny, nz, r, g, b = torch.as_tensor(_background_planes(which, height, width))
+    lx, ly, lz = (float(v) for v in r3.LIGHT_DIR)
+    sh = 0.45 + 0.55 * torch.clamp(nx * lx + ny * ly + nz * lz, 0.0, 1.0)
+    to_u8 = lambda x: torch.clamp(x, 0, 255).to(torch.int32).to(torch.uint8)
+    return torch.stack([to_u8(sh * ch * 255.0 + 0.5) for ch in (r, g, b)], -1) \
+        .reshape(-1, 3).numpy()
+
+
+@lru_cache(maxsize=8)
+def _button_planes(which: str, height: int, width: int) -> np.ndarray:
+    """[8, H * W] float32 per-pixel terms of every button cylinder, with the
+    twin's roundings (``_hit_vcylinder``): a = dx^2 + dy^2, 2 safe(a), then
+    for the base top and the cap top the ray's hit t with that plane and
+    the xy point eye + t d."""
+    eye, *dirs = _camera_planes(which, height, width)
+    dx, dy, dz = (torch.as_tensor(d).reshape(-1) for d in dirs)
+    a = dx * dx + dy * dy
+    planes = [a, 2 * r3._safe(a)]
+    for z_hi in (kuka_env.BUTTON_BASE_TOP, kuka_env.BUTTON_CAP_TOP):
+        t = _hit_floor(eye, dx, dy, dz, z_hi)
+        planes += [t, eye[0] + t * dx, eye[1] + t * dy]
+    return torch.stack(planes).numpy()
+
+
+class CameraTensors(NamedTuple):
+    eyes: tuple  # per view, the eye as 3 Python floats
+    rays: torch.Tensor  # [V, 3, P] float32 ray directions
+    bg: torch.Tensor  # [V, 7, P] float32 background state (t, normal, albedo)
+    bg_rgb: torch.Tensor  # [V, P, 3] uint8 background's shaded colour
+    planes: torch.Tensor  # [V, 8, P] float32 per-pixel button terms
+
+
 _DEVICE_CONSTS: dict = {}
 
 
-def camera_tensors(cfg: RenderConfig, device):
-    """(eyes, rays [V, 3, P], bg [V, 7, P]) on ``device``, cached."""
+def camera_tensors(cfg: RenderConfig, device) -> CameraTensors:
+    """The camera-static inputs of every view on ``device``, cached."""
     key = (cfg.views, cfg.trace_h, cfg.trace_w, str(device))
     if key not in _DEVICE_CONSTS:
-        eyes, rays, bgs = [], [], []
+        eyes, per_view = [], []
         for which in cfg.views:
             eye, dx, dy, dz = _camera_planes(which, cfg.trace_h, cfg.trace_w)
             eyes.append(eye)
-            rays.append(np.stack([dx.reshape(-1), dy.reshape(-1), dz.reshape(-1)]))
-            bgs.append(_background_planes(which, cfg.trace_h, cfg.trace_w)
-                       .reshape(7, -1))
-        _DEVICE_CONSTS[key] = (
-            tuple(eyes),
-            torch.as_tensor(np.stack(rays), device=device).contiguous(),
-            torch.as_tensor(np.stack(bgs), device=device).contiguous(),
-        )
+            per_view.append((
+                np.stack([dx.reshape(-1), dy.reshape(-1), dz.reshape(-1)]),
+                _background_planes(which, cfg.trace_h, cfg.trace_w).reshape(7, -1),
+                _background_rgb(which, cfg.trace_h, cfg.trace_w),
+                _button_planes(which, cfg.trace_h, cfg.trace_w)))
+        _DEVICE_CONSTS[key] = CameraTensors(tuple(eyes), *(
+            torch.as_tensor(np.stack(arrays), device=device).contiguous()
+            for arrays in zip(*per_view)))
     return _DEVICE_CONSTS[key]
 
 
@@ -303,26 +347,146 @@ def render_kuka_plain(cfg: RenderConfig, scene, eyes, rays, bg) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# The kernel's culling, in PyTorch: for tests and for counting its work.
+# ---------------------------------------------------------------------------
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+def _bound(r: float, z_lo: float, z_hi: float) -> Tuple[float, float]:
+    """(centre height, radius) of the sphere around a vertical cylinder."""
+    return _f32((z_lo + z_hi) / 2), _f32(np.hypot(r, (z_hi - z_lo) / 2))
+
+
+BASE_BOUND = _bound(kuka_env.BUTTON_BASE_RADIUS, kuka_env.Z_TABLE,
+                    kuka_env.BUTTON_BASE_TOP)
+CAP_BOUND = _bound(kuka_env.BUTTON_CAP_RADIUS, kuka_env.BUTTON_BASE_TOP,
+                   kuka_env.BUTTON_CAP_TOP)
+
+
+@lru_cache(maxsize=8)
+def _view_consts(which: str, height: int, width: int) -> Tuple[float, ...]:
+    """The kernel's ``View``: eye, forward, right and up axes, tan(fov / 2)
+    and tan(fov / 2) * width / height, each rounded to float32."""
+    eye, _ = r3._kuka_camera(which, height, width)
+    _, _, yaw, pitch, roll, fov = r3.KUKA_CAMERAS["main" if which == "main" else "second"]
+    fwd, right, up = camera.camera_basis(yaw, pitch, roll)
+    tan_h = np.tan(np.radians(fov) / 2.0)
+    return tuple(_f32(v) for v in (*np.asarray(eye), *fwd, *right, *up, tan_h,
+                                   tan_h * width / height))
+
+
+def primitive_kinds(cfg: RenderConfig) -> Tuple[str, ...]:
+    """The kernel's primitives in composite order: per button its base and
+    cap ("cylinder"), the capsule bodies, the joint spheres, the distractors
+    and the ball."""
+    n_spheres = cfg.n_pts + (cfg.n_distract + 1 if cfg.n_distract else 0)
+    return (("cylinder",) * (2 * cfg.n_buttons) + ("capsule",) * (cfg.n_pts - 1)
+            + ("sphere",) * n_spheres)
+
+
+def _bounding_spheres(cfg: RenderConfig, scene):
+    """Centre x, y, z and radius [N, n_prim, 2] of two spheres per primitive
+    whose convex hull holds it, with the kernel's float32 values
+    (``setup_prim``): a capsule body's two joint spheres (each at least as
+    wide as the body), and twice the bounding sphere of a cylinder (around
+    its z extent) or the sphere itself."""
+    n = scene.shape[0]
+    col = lambda j: scene[:, j]
+    full = lambda v: torch.full((n,), v, dtype=torch.float32, device=scene.device)
+    spheres = []
+    off = 3 * cfg.n_pts
+    for i in range(cfg.n_buttons):
+        for zmid, rad in (BASE_BOUND, CAP_BOUND):
+            spheres.append(2 * [(col(off + 2 * i), col(off + 2 * i + 1), full(zmid), full(rad))])
+    # The last capsule body and the last joint sphere are the gripper's.
+    n_seg = cfg.n_pts - 1
+    radius = lambda last: full(_f32(r3.ARM_LAST_RADIUS if last else r3.ARM_LINK_RADIUS))
+    point = lambda i: (col(3 * i), col(3 * i + 1), col(3 * i + 2))
+    for i in range(n_seg):
+        spheres.append([(*point(i), radius(False)), (*point(i + 1), radius(i + 1 == n_seg))])
+    for i in range(cfg.n_pts):
+        spheres.append(2 * [(*point(i), radius(i == cfg.n_pts - 1))])
+    if cfg.n_distract:
+        doff = off + 2 * cfg.n_buttons
+        for i in range(cfg.n_distract + 1):
+            rad = r3.BALL_RADIUS if i == cfg.n_distract else r3.DISTRACTOR_RADIUS
+            spheres.append(2 * [(*(col(doff + 3 * i + k) for k in range(3)), full(_f32(rad)))])
+    return tuple(torch.stack([torch.stack([a[k], b[k]], -1) for a, b in spheres], 1)
+                 for k in range(4))
+
+
+def _ratio_interval(a_lo, a_hi, w_lo, w_hi):
+    """The exact interval of a / w over [a_lo, a_hi] x [w_lo, w_hi], w > 0:
+    the least and largest of the four corner ratios."""
+    return (a_lo / torch.where(a_lo >= 0, w_hi, w_lo),
+            a_hi / torch.where(a_hi >= 0, w_lo, w_hi))
+
+
+def cull_rects(cfg: RenderConfig, scene, view: int) -> torch.Tensor:
+    """int32 [N, n_prim, 4]: per primitive, the first and last traced row
+    and column (clamped to [-1, n]) whose pixels the kernel traces it at, as
+    its ``cull_rect`` computes them. For a sphere: the rows whose pixel
+    centres see the exact interval of u/w over the sphere's camera-space
+    box, one row of slack each side, and the same for columns with x/w; the
+    whole image when the sphere reaches within 0.05 of the eye plane. A
+    primitive takes the union over its two spheres (``_bounding_spheres``):
+    the camera maps their convex hull onto the hull of their images."""
+    h, w = cfg.trace_h, cfg.trace_w
+    vc = _view_consts(cfg.views[view], h, w)
+    eye, fwd, right, up = (vc[3 * k:3 * k + 3] for k in range(4))
+    tan_h, tan_w = vc[12:]
+    cx, cy, cz, rad = _bounding_spheres(cfg, scene)
+    wx, wy, wz = cx - eye[0], cy - eye[1], cz - eye[2]
+    dot = lambda axis: wx * axis[0] + wy * axis[1] + wz * axis[2]
+    depth, uc, xc = dot(fwd), dot(up), dot(right)
+    w_lo, w_hi = depth - rad, depth + rad
+    v0, v1 = _ratio_interval(uc - rad, uc + rad, w_lo * tan_h, w_hi * tan_h)
+    u0, u1 = _ratio_interval(xc - rad, xc + rad, w_lo * tan_w, w_hi * tan_w)
+    to_int = lambda x, n: torch.clamp(x, -1.0, float(n)).to(torch.int32)
+    rect = torch.stack([to_int(torch.ceil((1.0 - v1) * (0.5 * h) - 1.5), h),
+                        to_int(torch.floor((1.0 - v0) * (0.5 * h) + 0.5), h),
+                        to_int(torch.ceil((u0 + 1.0) * (0.5 * w) - 1.5), w),
+                        to_int(torch.floor((u1 + 1.0) * (0.5 * w) + 0.5), w)], -1)
+    whole = torch.tensor([0, h - 1, 0, w - 1], dtype=torch.int32, device=scene.device)
+    rect = torch.where((depth <= rad + 0.05)[..., None], whole, rect)
+    return torch.stack([torch.minimum(rect[:, :, 0, 0], rect[:, :, 1, 0]),
+                        torch.maximum(rect[:, :, 0, 1], rect[:, :, 1, 1]),
+                        torch.minimum(rect[:, :, 0, 2], rect[:, :, 1, 2]),
+                        torch.maximum(rect[:, :, 0, 3], rect[:, :, 1, 3])], -1)
+
+
+def kept_pixels(cfg: RenderConfig, scene, view: int) -> torch.Tensor:
+    """int64 [N, n_prim]: how many traced pixels of the image lie in each
+    primitive's rectangle, i.e. at how many pixels the kernel can trace it."""
+    r = cull_rects(cfg, scene, view).to(torch.int64)
+    rows = (torch.clamp(r[..., 1], max=cfg.trace_h - 1)
+            - torch.clamp(r[..., 0], min=0) + 1).clamp(min=0)
+    cols = (torch.clamp(r[..., 3], max=cfg.trace_w - 1)
+            - torch.clamp(r[..., 2], min=0) + 1).clamp(min=0)
+    return rows * cols
+
+
+# ---------------------------------------------------------------------------
 # The CUDA kernel.
 # ---------------------------------------------------------------------------
-def _kernel_consts(eyes) -> np.ndarray:
+def _kernel_consts(cfg: RenderConfig) -> np.ndarray:
     """The kernel's ``Consts`` struct (csrc/render3d.cu), field by field."""
     z_table, base_top, cap_top = (kuka_env.Z_TABLE, kuka_env.BUTTON_BASE_TOP,
                                   kuka_env.BUTTON_CAP_TOP)
     base_r, cap_r = kuka_env.BUTTON_BASE_RADIUS, kuka_env.BUTTON_CAP_RADIUS
-    link, last = r3.ARM_LINK_RADIUS, r3.ARM_LAST_RADIUS
-    dist, ball = r3.DISTRACTOR_RADIUS, r3.BALL_RADIUS
     vals = [*(float(v) for v in r3.LIGHT_DIR), z_table, base_top, cap_top,
-            base_r, base_r * base_r, cap_r, cap_r * cap_r,
-            link * link, 1.0 / link, last * last, 1.0 / last,
-            dist * dist, 1.0 / dist, ball * ball, 1.0 / ball]
+            base_r, base_r * base_r, cap_r, cap_r * cap_r]
+    for r in (r3.ARM_LINK_RADIUS, r3.ARM_LAST_RADIUS, r3.DISTRACTOR_RADIUS, r3.BALL_RADIUS):
+        vals.extend([r, r * r, 1.0 / r])
+    vals.extend([*BASE_BOUND, *CAP_BOUND])
     for color in (r3.BUTTON_GREEN, r3.BUTTON_CAP_YELLOW, r3.BUTTON_CAP_TEAL,
                   r3.ARM_ORANGE, r3.ARM_SILVER, r3.DISTRACTOR_COLOR,
                   r3.BALL_COLOR):
         vals.extend(float(c) for c in color)
     for v in range(2):
-        ex, ey, ez = eyes[min(v, len(eyes) - 1)]
-        vals.extend([ex, ey, ez, base_top - ez, cap_top - ez])
+        which = cfg.views[min(v, len(cfg.views) - 1)]
+        vals.extend(_view_consts(which, cfg.trace_h, cfg.trace_w))
     return np.asarray(vals, np.float32)
 
 
@@ -332,9 +496,12 @@ def _load_kernel():
     lib = cuda_build.load("render3d")
     lib.render3d_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # scene, n, stride
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # rays, bg, consts
+        ctypes.c_void_p, ctypes.c_void_p,  # rays, bg
+        ctypes.c_void_p, ctypes.c_void_p,  # bg_rgb, planes
+        ctypes.c_void_p,  # consts (host)
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # buttons, pts, distract
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # h, w, up, V
+        ctypes.c_int,  # cull
         ctypes.c_void_p, ctypes.c_void_p,  # out, stream
     ]
     lib.render3d_launch.restype = ctypes.c_int
@@ -343,41 +510,57 @@ def _load_kernel():
     return lib
 
 
-def render_kuka_cuda(cfg: RenderConfig, scene, eyes, rays, bg) -> torch.Tensor:
-    """Launch ``csrc/render3d.cu``: uint8 [N, H, W, 3 * views]."""
+def render_kuka_cuda(cfg: RenderConfig, scene, cam: CameraTensors, out=None,
+                     cull: bool = True) -> torch.Tensor:
+    """Launch ``csrc/render3d.cu``: uint8 [N, H, W, 3 * views], into ``out``
+    when given (a contiguous tensor of that shape). ``cull=False`` traces
+    every primitive at every pixel; it is there to check that culling
+    changes no bit."""
     global launches
     n_views = len(cfg.views)
     p = cfg.trace_h * cfg.trace_w
     n = scene.shape[0]
     for name, x, dtype, shape in (
         ("scene", scene, torch.float32, (n, scene.shape[1])),
-        ("rays", rays, torch.float32, (n_views, 3, p)),
-        ("bg", bg, torch.float32, (n_views, 7, p)),
+        ("rays", cam.rays, torch.float32, (n_views, 3, p)),
+        ("bg", cam.bg, torch.float32, (n_views, 7, p)),
+        ("bg_rgb", cam.bg_rgb, torch.uint8, (n_views, p, 3)),
+        ("planes", cam.planes, torch.float32, (n_views, 8, p)),
     ):
         if x.device.type != "cuda" or x.dtype != dtype or tuple(x.shape) != shape \
                 or not x.is_contiguous():
             raise ValueError(
                 f"render3d: {name} must be a contiguous {dtype} CUDA tensor of "
                 f"shape {shape}, got {x.dtype} {tuple(x.shape)} on {x.device}")
-    if not (rays.device == bg.device == scene.device):
-        raise ValueError("render3d: scene, rays and bg must be on one device")
+    if len({scene.device, cam.rays.device, cam.bg.device, cam.bg_rgb.device,
+            cam.planes.device}) != 1:
+        raise ValueError("render3d: scene and camera tensors must be on one device")
+    n_prim = len(primitive_kinds(cfg))
     expect = 3 * cfg.n_pts + 2 * cfg.n_buttons + (
         3 * cfg.n_distract + 3 if cfg.n_distract else 0)
-    if scene.shape[1] != expect or expect > 128 or n_views > 2 or n > 65535:
-        raise ValueError(f"render3d: scene row of {scene.shape[1]} floats, "
-                         f"{n_views} views, {n} envs not supported")
+    if scene.shape[1] != expect or expect > 128 or n_prim > 64 or n_views > 2 \
+            or n > 65535 or cfg.trace_w > 224:
+        raise ValueError(f"render3d: scene row of {scene.shape[1]} floats, {n_prim} "
+                         f"primitives, {n_views} views, {n} envs, width "
+                         f"{cfg.trace_w} not supported")
+    shape = (n, cfg.trace_h * cfg.up, cfg.trace_w * cfg.up, 3 * n_views)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.uint8, device=scene.device)
+    if out.dtype != torch.uint8 or tuple(out.shape) != shape or not out.is_contiguous() \
+            or out.device != scene.device:
+        raise ValueError(f"render3d: out must be a contiguous uint8 {shape} tensor on "
+                         f"{scene.device}")
     lib = _load_kernel()
-    consts = _kernel_consts(eyes)
+    consts = _kernel_consts(cfg)
     if consts.size != lib.render3d_consts_floats():
         raise RuntimeError("render3d: host constants do not match the kernel")
-    out = torch.empty((n, cfg.trace_h * cfg.up, cfg.trace_w * cfg.up, 3 * n_views),
-                      dtype=torch.uint8, device=scene.device)
     with torch.cuda.device(scene.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.render3d_launch(
-            scene.data_ptr(), n, scene.shape[1], rays.data_ptr(), bg.data_ptr(),
-            consts.ctypes.data, cfg.n_buttons, cfg.n_pts, cfg.n_distract,
-            cfg.trace_h, cfg.trace_w, cfg.up, n_views, out.data_ptr(), stream)
+            scene.data_ptr(), n, scene.shape[1], cam.rays.data_ptr(), cam.bg.data_ptr(),
+            cam.bg_rgb.data_ptr(), cam.planes.data_ptr(), consts.ctypes.data,
+            cfg.n_buttons, cfg.n_pts, cfg.n_distract, cfg.trace_h, cfg.trace_w, cfg.up,
+            n_views, int(cull), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"render3d kernel launch failed: CUDA error {err}")
     launches += 1
@@ -388,9 +571,9 @@ def render_kuka(env, states) -> torch.Tensor:
     """uint8 [N, H, W, 3] (or 6 channels with multi_view) Kuka frames of a
     batched KukaState: the CUDA kernel on a card, the twin on the CPU."""
     cfg, scene = _scene_table(env, states)
-    eyes, rays, bg = camera_tensors(cfg, scene.device)
+    cam = camera_tensors(cfg, scene.device)
     if scene.device.type == "cuda":
-        return render_kuka_cuda(cfg, scene, eyes, rays, bg)
+        return render_kuka_cuda(cfg, scene, cam)
     if scene.device.type != "cpu":
         raise ValueError(f"render_kuka: no path for device {scene.device}")
-    return render_kuka_plain(cfg, scene, eyes, rays, bg)
+    return render_kuka_plain(cfg, scene, cam.eyes, cam.rays, cam.bg)

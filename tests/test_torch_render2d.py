@@ -16,7 +16,9 @@ reference's. The first-person view is float ray tracing and meets the
 render agreement of tests/test_pallas_render.py (over 99.5% of values
 equal, under 0.5% off by more than 2).
 
-The ``gpu`` test holds the CUDA kernel bit-equal to the twin on the card.
+The ``gpu`` tests hold the CUDA kernel bit-equal to the twin on the card,
+at 224x224 and at small shapes whose pixel count is not a multiple of the
+kernel's 512-pixel warp span, with and without the first-person channels.
 """
 import dataclasses
 import functools
@@ -235,9 +237,20 @@ def test_scene_rows_match_the_reference(jax_ref):
 def test_wrapper_refuses_cpu_tensors_for_the_kernel():
     env = tm.MobileRobotEnv(srl_model="raw_pixels", render_shape=(16, 16))
     scene = render2d.scene_params(env, env.reset(torch.Generator().manual_seed(0), 2))
-    xs, ys, bg = render2d.static_tensors(env.dim, 16, 16, scene.device)
+    xs, ys, _ = render2d.static_tensors(env.dim, 16, 16, scene.device)
+    bg_rgb = render2d.background_rgb(env.dim, 16, 16, scene.device)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        render2d.render_mobile_robot_cuda(scene, xs, ys, bg)
+        render2d.render_mobile_robot_cuda(scene, xs, ys, bg_rgb)
+
+
+@pytest.mark.parametrize("dim", [1, 2])
+@pytest.mark.parametrize("hw", [(224, 224), (30, 40), (30, 41)])
+def test_background_bytes_are_the_packed_background(dim, hw):
+    """The kernel's background, RGB bytes, holds the twin's packed words."""
+    _, _, bg = render2d.static_tensors(dim, *hw, "cpu")
+    rgb = render2d.background_rgb(dim, *hw, "cpu")
+    assert rgb.dtype == torch.uint8 and rgb.shape == (*hw, 3) and rgb.is_contiguous()
+    assert torch.equal(rgb.to(torch.int32), torch.stack([(bg >> s) & 255 for s in (0, 8, 16)], -1))
 
 
 @pytest.fixture
@@ -262,6 +275,26 @@ def test_kernel_matches_twin_on_card(variant, fpv, cuda_device):
         scene, *render2d.static_tensors(env.dim, 224, 224, cuda_device))
     torch.cuda.synchronize()
     assert out.shape == (64, 224, 224, 6 if fpv else 3)
+    assert torch.equal(out[..., :3], plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw", [(30, 40), (30, 41)])
+@pytest.mark.parametrize("fpv", [False, True])
+def test_kernel_matches_twin_on_card_at_a_ragged_shape(hw, fpv, cuda_device):
+    """Pixel counts that are not a multiple of the kernel's 512-pixel span:
+    1,200 (every env's output 16-byte aligned) and 1,230 (not)."""
+    env = tm.MobileRobotEnv(srl_model="raw_pixels", random_target=True, fpv=fpv,
+                            render_shape=hw)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    states = env.reset(gen, 64)
+    for _ in range(20):
+        states, _, _ = env.step(states, env.action_space.sample(gen, 64), gen)
+    out = render2d.render_mobile_robot(env, states)
+    plain = render2d.render_mobile_robot_plain(
+        render2d.scene_params(env, states), *render2d.static_tensors(env.dim, *hw, cuda_device))
+    torch.cuda.synchronize()
+    assert out.shape == (64, *hw, 6 if fpv else 3)
     assert torch.equal(out[..., :3], plain)
 
 
