@@ -25,7 +25,16 @@ Phases, each reported on its own lines; any failure exits non-zero:
    outputs: PPO2 on KukaButtonGymEnv-v0 from raw pixels (256 envs, render
    scale 2, coarse observations, 2 updates), PPO2 on MobileRobotGymEnv-v0
    from 224x224 raw pixels (256 envs, 3 updates), and the ground-truth
-   quickstart (4096 envs, 2 updates).
+   quickstart (4096 envs, 2 updates);
+5. drive the SRL workflow through its three CLIs, each step with the launch
+   counts set to 0 just before and read just after: record a MobileRobot
+   dataset (32 envs, 32 episodes of 64 frames, 224x224x3; render2d), train
+   an autoencoder on it (state dim 3, batch 128, 2 epochs; every logged
+   loss finite), serve it to PPO2 through SRLEncodedEnv (256 envs, 3
+   updates, observations [256, 3]; render2d); then record a Kuka dataset at
+   render scale 2 (32 envs, 32 episodes of up to 32 frames, 224x224x3;
+   render3d), train an autoencoder on it for 1 epoch and serve it to PPO2
+   (512 envs, 2 updates; render3d).
 
 The line before the last is a JSON object with each kernel's numbers, the
 last ``{"ok": true, "device": {...}}``. Needs the card and the rest of the
@@ -35,6 +44,7 @@ import itertools
 import json
 import math
 import os
+import pickle
 import re
 import subprocess
 import sys
@@ -78,6 +88,17 @@ MOBILE_ARGS = ["--env", "MobileRobotGymEnv-v0", "--srl-model", "raw_pixels",
 QUICKSTART_ARGS = ["--env", "MobileRobotGymEnv-v0", "--srl-model", "ground_truth",
                    "--algo", "ppo2", "--num-envs", "4096", "--num-timesteps", "960000",
                    "--no-vis"]
+SRL_MOBILE_DATA = ["--env", "MobileRobotGymEnv-v0", "--num-envs", "32", "--max-steps", "63",
+                   "--num-episode", "32", "--name", "mobile"]
+SRL_KUKA_DATA = ["--env", "KukaButtonGymEnv-v0", "--num-envs", "32", "--max-steps", "31",
+                 "--num-episode", "32", "--render-scale", "2", "--name", "kuka"]
+SRL_TRAIN = ["--srl-model", "autoencoder", "--state-dim", "3", "--batch-size", "128"]
+SRL_MOBILE_ARGS = ["--env", "MobileRobotGymEnv-v0", "--srl-model", "autoencoder",
+                   "--algo", "ppo2", "--num-envs", "256", "--num-timesteps", "90000",
+                   "--no-vis"]
+SRL_KUKA_ARGS = ["--env", "KukaButtonGymEnv-v0", "--srl-model", "autoencoder",
+                 "--algo", "ppo2", "--num-envs", "512", "--render-scale", "2",
+                 "--num-timesteps", "120000", "--no-vis"]
 RUN_FILES = ("args.json", "env_globals.json", "0.monitor.csv", "metrics.jsonl",
              "ppo2_final_model.pkl")
 
@@ -311,9 +332,11 @@ def compare_render2d(torch, dev, mobile_robot, render2d):
     return max_err, main_inputs
 
 
-def drive(torch, train, argv, counters, what):
+def drive(torch, train, argv, counters, what, obs_shape=None):
     """Run the CLI with every launch count set to 0 just before; returns
-    (seconds, launches per kernel, metrics lines)."""
+    (seconds, launches per kernel, metrics lines). With ``obs_shape``, the
+    run's observation normalizer must have that shape (the observations
+    PPO2 saw)."""
     with tempfile.TemporaryDirectory() as tmp:
         for module in counters.values():
             module.launches = 0
@@ -325,6 +348,11 @@ def drive(torch, train, argv, counters, what):
         for f in RUN_FILES:
             if not os.path.isfile(os.path.join(log_dir, f)):
                 raise AssertionError(f"{what}: run dir lacks {f}")
+        if obs_shape is not None:
+            with open(os.path.join(log_dir, "ppo2_final_model.pkl"), "rb") as fh:
+                mean = pickle.load(fh)["obs_norm"]["mean"]
+            if tuple(mean.shape) != tuple(obs_shape):
+                raise AssertionError(f"{what}: observations {mean.shape}, not {obs_shape}")
         with open(os.path.join(log_dir, "metrics.jsonl")) as fh:
             entries = [json.loads(line) for line in fh]
     for e in entries:
@@ -338,6 +366,80 @@ def drive(torch, train, argv, counters, what):
         f"running rate {entries[-1]['fps']:.0f}); launches {launches}; losses finite: "
         + ", ".join(f"pg {e['pg_loss']:.4g} vf {e['vf_loss']:.4g}" for e in entries))
     return seconds, launches, entries
+
+
+def record(torch, generator, episode_saver, argv, counters, what, root):
+    """The dataset generator CLI with the launch counts set to 0 just
+    before; returns (dataset folder, launches per kernel)."""
+    for module in counters.values():
+        module.launches = 0
+    t0 = time.perf_counter()
+    folder = generator.main(argv + ["--save-path", root, "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: module.launches for name, module in counters.items()}
+    data = episode_saver.load_dataset(folder)
+    obs, n = data["observations"], len(data["rewards"])
+    if obs.shape != (n, 224, 224, 3) or obs.dtype.name != "uint8":
+        raise AssertionError(f"{what}: frames {obs.shape} {obs.dtype}")
+    if int(data["episode_starts"].sum()) != 32 or not obs.any():
+        raise AssertionError(f"{what}: {int(data['episode_starts'].sum())} episodes")
+    log(f"[srl] record {what}: {n} frames of 224x224x3 in 32 episodes, {seconds:.2f} s "
+        f"with start-up: {n / seconds:.0f} frames/s; launches {launches}")
+    return folder, launches
+
+
+def train_encoder(torch, train_srl, folder, epochs, counters, what, log_dir):
+    """The train_srl CLI; returns its history.json (losses finite)."""
+    for module in counters.values():
+        module.launches = 0
+    path = train_srl.main(["--data-folder", folder, "--epochs", str(epochs), "--log-dir",
+                           log_dir, "--device", "cuda"] + SRL_TRAIN)
+    with open(os.path.join(log_dir, "history.json")) as fh:
+        hist = json.load(fh)
+    for e, logs in enumerate(hist["history"]):
+        for k, v in logs.items():
+            if not math.isfinite(v):
+                raise AssertionError(f"{what}, epoch {e}: {k} = {v}")
+    if len(hist["history"]) != epochs or not os.path.isfile(path):
+        raise AssertionError(f"{what}: {len(hist['history'])} epochs logged")
+    log(f"[srl] train_srl {what}: {hist['images_trained']} images of 224x224x3 at batch 128 "
+        f"in {hist['seconds']:.2f} s: {hist['img_per_s']:.0f} img/s; reconstruction by "
+        f"epoch " + ", ".join(f"{h['reconstruction']:.5f}" for h in hist["history"]))
+    return hist
+
+
+def srl_workflow(torch, train, counters) -> dict:
+    """Step 5: record, train, serve, on MobileRobot then on Kuka."""
+    from srl_tpu_torch.data import dataset_generator
+    from srl_tpu_torch.experiments import train_srl
+    from srl_tpu_torch.srl import episode_saver
+
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        logs = {env: os.path.join(root, "srl_logs", env)
+                for env in ("MobileRobotGymEnv-v0", "KukaButtonGymEnv-v0")}
+        config = os.path.join(root, "srl_models.yaml")
+        with open(config, "w") as fh:
+            for env, folder in logs.items():
+                fh.write(f"{env}:\n  log_folder: {folder}/\n"
+                         f"  autoencoder: autoencoder/srl_model.pkl\n")
+        for env, data_args, epochs, run_args, n_envs, kernel in (
+                ("MobileRobotGymEnv-v0", SRL_MOBILE_DATA, 2, SRL_MOBILE_ARGS, 256, "render2d"),
+                ("KukaButtonGymEnv-v0", SRL_KUKA_DATA, 1, SRL_KUKA_ARGS, 512, "render3d")):
+            folder, rec_launches = record(torch, dataset_generator, episode_saver, data_args,
+                                          counters, env, root)
+            if rec_launches[kernel] <= 0:
+                raise AssertionError(f"recording {env} never launched the {kernel} kernel")
+            train_encoder(torch, train_srl, folder, epochs, counters, env,
+                          os.path.join(logs[env], "autoencoder"))
+            seconds, launches, entries = drive(
+                torch, train, run_args + ["--srl-config-file", config], counters,
+                f"{env} autoencoder (SRLEncodedEnv) {n_envs} envs", obs_shape=(3,))
+            if launches[kernel] <= 0:
+                raise AssertionError(f"serving on {env} never launched the {kernel} kernel")
+            out[env] = {"record": rec_launches, "serve": launches}
+    return out
 
 
 def main() -> int:
@@ -433,6 +535,10 @@ def main() -> int:
                           "MobileRobotGymEnv-v0 ground_truth 4096 envs")
     log("[main] quickstart mean reward per env step, by update: "
         + ", ".join(f"{e['mean_reward_per_step']:.5f}" for e in entries))
+
+    # 5. The SRL workflow.
+    srl_launches = srl_workflow(torch, train, counters)
+    log(f"[srl] launches: {json.dumps(srl_launches)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s after start-up")
 
     print(json.dumps({"kernels": [{

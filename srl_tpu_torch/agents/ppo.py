@@ -31,11 +31,8 @@ from srl_tpu_torch.agents.common import collect_rollout, compute_gae, explained_
 from srl_tpu_torch.core.device import resolve_device
 from srl_tpu_torch.core.env import VecEnv, VecEnvState
 from srl_tpu_torch.core.normalize import RunningNorm
+from srl_tpu_torch.core.optim import adam_init, adam_update_
 from srl_tpu_torch.models.policies import ActorCritic, make_policy
-
-ADAM_B1 = 0.9
-ADAM_B2 = 0.999
-
 
 @dataclasses.dataclass
 class PPOConfig:
@@ -61,12 +58,6 @@ class PPOState:
     vstate: Optional[VecEnvState]
     obs: Optional[torch.Tensor]
     obs_norm: Optional[RunningNorm]
-
-
-def adam_init(params: Dict[str, torch.Tensor]) -> dict:
-    return {"count": 0,
-            "mu": {k: torch.zeros_like(v) for k, v in params.items()},
-            "nu": {k: torch.zeros_like(v) for k, v in params.items()}}
 
 
 def clip_by_global_norm_(grads: Dict[str, torch.Tensor], max_norm: float):
@@ -147,15 +138,8 @@ class PPO2(BaseRLAgent):
         fc512 weight alone is 19M floats.)"""
         cfg = self.config
         clip_by_global_norm_(grads, cfg.max_grad_norm)
-        step = -self.learning_rate(opt_state["count"])
-        opt_state["count"] += 1
-        c1 = 1 - ADAM_B1 ** opt_state["count"]
-        c2 = 1 - ADAM_B2 ** opt_state["count"]
-        for k, g in grads.items():
-            mu = opt_state["mu"][k].mul_(ADAM_B1).add_(g, alpha=1 - ADAM_B1)
-            nu = opt_state["nu"][k].mul_(ADAM_B2).addcmul_(g, g, value=1 - ADAM_B2)
-            denom = torch.div(nu, c2).sqrt_().add_(cfg.adam_eps)
-            params[k].add_(torch.div(mu, c1).div_(denom).mul_(step))
+        adam_update_(params, grads, opt_state, self.learning_rate(opt_state["count"]),
+                     cfg.adam_eps)
 
     # ------------------------------------------------------------------
     def _loss(self, params, minibatch, cliprange):

@@ -7,6 +7,9 @@
 * ``load_jax_checkpoint`` reads the pickles the reference agents write
   (``{"name", "config", "num_envs", "policy_kind", "normalize_obs",
   "params", "obs_norm"}``) and the port writes the same format.
+* ``srl_state_dict_to_flax`` / ``srl_flax_to_state_dict`` do the same for
+  the SRL networks (``srl/nets.py``), whose deconv kernels are also
+  spatially flipped.
 * ``state_from_numpy`` turns a batched reference env state (as a dict of
   numpy arrays) into the port's dataclass (``kuka_state_from_numpy`` for
   ``KukaState``).
@@ -104,6 +107,57 @@ def load_jax_checkpoint(path: str) -> dict:
     payload["state_dict"] = flax_to_state_dict(
         payload["params"], torso_kind_of(payload["params"]))
     return payload
+
+
+def _srl_to_flax(name: str, x: np.ndarray) -> np.ndarray:
+    if not name.endswith("weight"):
+        return x
+    if x.ndim == 4 and name.startswith("decoder."):
+        # Deconv [in, out, kh, kw], flipped -> Flax's unflipped HWIO.
+        return np.ascontiguousarray(x.transpose(2, 3, 0, 1)[::-1, ::-1])
+    return _to_flax(name, x)
+
+
+def _srl_from_flax(name: str, x: np.ndarray) -> np.ndarray:
+    if not name.endswith("weight"):
+        return x
+    if x.ndim == 4 and name.startswith("decoder."):
+        return np.ascontiguousarray(x[::-1, ::-1].transpose(2, 3, 0, 1))
+    return _from_flax(name, x)
+
+
+def srl_state_dict_to_flax(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """``SRLModules`` state_dict -> the ``{"params": {...}}`` tree of plain
+    dicts of float32 numpy arrays that the reference's ``SRLTrainer.save``
+    pickles (``encoder/{c1,c2,c3,fc1,state}`` or ``encoder/Dense_0..2``,
+    ``decoder/{Dense_0,d1..d4}``, ``*_head/{Dense_0,Dense_1}``,
+    ``log_var_head``). Deconv kernels are flipped back (``srl/nets.py``)."""
+    tree: dict = {}
+    for name, value in state_dict.items():
+        node = tree
+        parts = name.split(".")
+        for key in parts[:-1]:
+            node = node.setdefault(key, {})
+        x = value.detach().to("cpu", torch.float32).numpy()
+        node["kernel" if parts[-1] == "weight" else parts[-1]] = _srl_to_flax(name, x)
+    return {"params": tree}
+
+
+def srl_flax_to_state_dict(tree: dict) -> Dict[str, torch.Tensor]:
+    """The reference's SRL ``{"params": {...}}`` tree -> an ``SRLModules``
+    state_dict (CPU float32)."""
+    out = {}
+
+    def walk(node, prefix):
+        for key, value in node.items():
+            if isinstance(value, dict):
+                walk(value, prefix + [key])
+                continue
+            name = ".".join(prefix + ["weight" if key == "kernel" else key])
+            out[name] = torch.tensor(_srl_from_flax(name, np.asarray(value, np.float32)))
+
+    walk(tree["params"], [])
+    return out
 
 
 def state_from_numpy(cls, arrays: Dict[str, np.ndarray], device="cpu"):

@@ -116,6 +116,15 @@ class BatchedEnv(abc.ABC):
             return gt - self.target_pos(state)
         return gt
 
+    @staticmethod
+    def ground_truth_dim() -> int:
+        raise NotImplementedError
+
+    def render_pixels(self, state) -> torch.Tensor:
+        """uint8 [N, H, W, C] frames, whatever ``srl_model`` says; pixel envs
+        override."""
+        raise NotImplementedError
+
 
 class VecEnv:
     """Auto-resetting vector of ``num_envs`` envs.

@@ -1,7 +1,7 @@
 """Name -> entry registry (counterpart of srl_tpu/core/registry.py)."""
 from __future__ import annotations
 
-from typing import Dict, Generic, TypeVar
+from typing import Dict, Generic, Iterator, TypeVar
 
 T = TypeVar("T")
 
@@ -20,6 +20,12 @@ class Registry(Generic[T]):
             raise KeyError(
                 f"Unknown {self.kind} '{name}'. Registered: {sorted(self._entries)}")
         return self._entries[name]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._entries
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._entries)
 
     def keys(self):
         return self._entries.keys()

@@ -421,6 +421,10 @@ class KukaButtonEnv(BatchedEnv):
         return new_state, reward.to(torch.float32), done
 
     # ------------------------------------------------------------------
+    @staticmethod
+    def ground_truth_dim() -> int:
+        return 3
+
     def ground_truth(self, state: KukaState) -> torch.Tensor:
         return state.gripper
 
@@ -439,6 +443,9 @@ class KukaButtonEnv(BatchedEnv):
             return self.joints(state)
         if self.srl_model == "joints_position":
             return torch.cat([self.srl_state(state), self.joints(state)], 1)
+        return self.render_pixels(state)
+
+    def render_pixels(self, state: KukaState) -> torch.Tensor:
         from srl_tpu_torch.ops.render3d import render_kuka
 
         return render_kuka(self, state)

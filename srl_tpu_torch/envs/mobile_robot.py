@@ -249,6 +249,9 @@ class MobileRobotEnv(BatchedEnv):
     def observe(self, state: MobileRobotState) -> torch.Tensor:
         if self.srl_model == "ground_truth":
             return self.srl_state(state)
+        return self.render_pixels(state)
+
+    def render_pixels(self, state: MobileRobotState) -> torch.Tensor:
         from srl_tpu_torch.ops.render2d import render_mobile_robot
 
         return render_mobile_robot(self, state)

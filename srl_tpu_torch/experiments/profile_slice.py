@@ -1,18 +1,20 @@
 """Where the time of one PPO2 update goes on the card, for a main path of
 the port: by default KukaButtonGymEnv-v0 from raw pixels (render scale 2,
 coarse observations, the Nature CNN); ``--env MobileRobotGymEnv-v0`` gives
-the MobileRobot pixel run (224x224 frames from the sprite compositor).
+the MobileRobot pixel run (224x224 frames from the sprite compositor); a
+learned ``--srl-model`` with ``--srl-model-path`` profiles PPO2 on that
+encoder's states (``SRLEncodedEnv``: render, then encode).
 
     python -m srl_tpu_torch.experiments.profile_slice [--env ENV_ID]
-        [--srl-model raw_pixels|ground_truth] [--num-envs 256]
+        [--srl-model NAME [--srl-model-path CHECKPOINT]] [--num-envs 256]
 
 After one warm-up update it reports, on the host clock with the device
 synchronised around each part:
 
 * the wall time of an update and of its two halves, the 128-step rollout and
   the 4 x 4 minibatch epochs;
-* a rollout step split into its parts (env dynamics, render, policy, action
-  sampling), each timed over 128 steps with a synchronise between parts
+* a rollout step split into its parts (env dynamics, render (with the
+  encoder, for an SRL model), policy, action sampling), each timed over 128 steps with a synchronise between parts
   (auto-resets left out);
 * under ``torch.profiler``, one more update: device time by kernel (top 12),
   kernel launches per update and per env step, and the device's busy and
@@ -32,6 +34,7 @@ import torch
 from srl_tpu_torch.agents.ppo import PPO2
 from srl_tpu_torch.envs.registry import make_env, registered_env
 from srl_tpu_torch.experiments.train import accepted_kwargs
+from srl_tpu_torch.srl.registry import registered_srl
 
 
 def _sync_time(fn):
@@ -67,7 +70,9 @@ def main(argv=None) -> dict:
     parser.add_argument("--env", default="KukaButtonGymEnv-v0",
                         choices=list(registered_env.keys()))
     parser.add_argument("--srl-model", default="raw_pixels",
-                        choices=["raw_pixels", "ground_truth"])
+                        choices=list(registered_srl.keys()))
+    parser.add_argument("--srl-model-path", default=None,
+                        help="checkpoint of a learned --srl-model")
     parser.add_argument("--num-envs", type=int, default=256)
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
@@ -76,10 +81,16 @@ def main(argv=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # Kuka's main path traces at render scale 2 with coarse observations;
-    # the MobileRobot envs take neither option.
-    options = dict(srl_model=args.srl_model, render_scale=2, coarse_obs=True)
+    # Kuka's pixel run traces at render scale 2 with coarse observations,
+    # an encoder reads the upsampled 224x224 frames; the MobileRobot envs
+    # take neither option.
+    options = dict(srl_model=args.srl_model, render_scale=2,
+                   coarse_obs=args.srl_model == "raw_pixels")
     env = make_env(args.env, **accepted_kwargs(registered_env[args.env], options))
+    if args.srl_model_path is not None:
+        from srl_tpu_torch.srl.models import SRLEncodedEnv, loadSRLModel
+
+        env = SRLEncodedEnv(env, loadSRLModel(args.srl_model_path, device="cuda"))
     agent = PPO2(env=env, num_envs=args.num_envs, device="cuda")
     agent.n_updates = 3
     gen = torch.Generator(device="cuda").manual_seed(args.seed)

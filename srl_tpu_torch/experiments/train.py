@@ -1,25 +1,33 @@
 """Training entry point (counterpart of srl_tpu/experiments/train.py).
 
 The port's subset of the reference CLI: ``--algo ppo2`` on the four Kuka
-and the four MobileRobot envs with ``--srl-model raw_pixels|ground_truth``,
+and the four MobileRobot envs with every ``--srl-model`` of the registry,
 optionally with ``--num-stack`` frames. Every env gets the options it takes
-(found by signature, as the reference does). The run directory has the
-reference's layout, ``{log-dir}/{env}/{srl_model}/{algo}/{datetime}/`` with
-``args.json``, ``env_globals.json``, ``0.monitor.csv``, ``metrics.jsonl``,
+(found by signature, as the reference does). A learned model (type SRL) is
+resolved as the reference resolves it: ``--latest`` takes the newest
+``srl_logs/{env}/**/srl_model.pkl``, else ``--srl-config-file`` names its
+checkpoint under the env's ``log_folder``; the env is then wrapped in
+``SRLEncodedEnv`` (render -> encode) before any frame stacking. The run
+directory has the reference's layout,
+``{log-dir}/{env}/{srl_model}/{algo}/{datetime}/`` with ``args.json``, ``env_globals.json``, ``0.monitor.csv``, ``metrics.jsonl``,
 ``ppo2_model.pkl`` (best mean reward over the last 100 episodes, once 100
 have finished) and ``ppo2_final_model.pkl``; the reference's
 ``srl_tpu.agents.ppo.PPO2.load`` reads both checkpoints.
 
-Usage (the README's pixel run, and the quickstart):
+Usage (the README's pixel run, the quickstart, and an encoder trained by
+``srl_tpu_torch.experiments.train_srl``):
   python -m srl_tpu_torch.experiments.train --env KukaButtonGymEnv-v0 \\
       --srl-model raw_pixels --algo ppo2 --num-envs 256 --render-scale 2 \\
       --coarse-obs
   python -m srl_tpu_torch.experiments.train --env MobileRobotGymEnv-v0 \\
       --srl-model ground_truth --algo ppo2 --num-envs 4096
+  python -m srl_tpu_torch.experiments.train --env MobileRobotGymEnv-v0 \\
+      --srl-model autoencoder --algo ppo2 --num-envs 256
 """
 from __future__ import annotations
 
 import argparse
+import glob
 import inspect
 import json
 import os
@@ -33,8 +41,11 @@ from srl_tpu_torch.agents.ppo import PPO2
 from srl_tpu_torch.core.device import resolve_device
 from srl_tpu_torch.core.frame_stack import FrameStack
 from srl_tpu_torch.envs.registry import make_env, registered_env
-from srl_tpu_torch.utils.logging import printGreen
+from srl_tpu_torch.srl import SRLType
+from srl_tpu_torch.srl.registry import registered_srl
+from srl_tpu_torch.utils.logging import printGreen, printYellow
 from srl_tpu_torch.utils.monitor import MonitorWriter
+from srl_tpu_torch.utils.srl_models_yaml import read_srl_models
 
 MIN_EPISODES_BEFORE_SAVE = 100
 N_EPISODES_EVAL = 100
@@ -51,7 +62,13 @@ def parse_args(argv=None):
     parser.add_argument("--env", default="KukaButtonGymEnv-v0",
                         choices=list(registered_env.keys()))
     parser.add_argument("--srl-model", default="raw_pixels",
-                        choices=["raw_pixels", "ground_truth"])
+                        choices=list(registered_srl.keys()))
+    parser.add_argument("--srl-config-file", default="config/srl_models.yaml",
+                        help="env -> {log_folder, model: checkpoint} map of the "
+                        "trained SRL models")
+    parser.add_argument("--latest", action="store_true",
+                        help="use the newest trained SRL model of the env under "
+                        "srl_logs/")
     parser.add_argument("--num-envs", type=int, default=16)
     parser.add_argument("--num-timesteps", type=int, default=int(1e6))
     parser.add_argument("--seed", type=int, default=0)
@@ -97,9 +114,32 @@ def accepted_kwargs(env_cls, kwargs: dict) -> dict:
     return {k: v for k, v in kwargs.items() if k in accepted}
 
 
-def build_env(args):
-    """The env of ``args.env`` with the options it takes, frame-stacked
-    when ``--num-stack`` > 1."""
+def srl_model_path(args):
+    """The checkpoint of a learned ``--srl-model``, or None for a mode the
+    env provides."""
+    if registered_srl[args.srl_model]["type"] != SRLType.SRL:
+        return None
+    if args.latest:
+        printYellow("Using latest srl model")
+        pattern = os.path.join("srl_logs", args.env, "**", "srl_model.pkl")
+        candidates = glob.glob(pattern, recursive=True)
+        if not candidates:
+            raise FileNotFoundError(f"No trained SRL models found under srl_logs/{args.env}")
+        return max(candidates, key=os.path.getmtime)
+    all_models = read_srl_models(args.srl_config_file)
+    if args.env not in all_models:
+        raise KeyError(f"environment '{args.env}' not in srl config file "
+                       f"'{args.srl_config_file}'")
+    models = all_models[args.env]
+    if args.srl_model not in models:
+        raise KeyError(f"srl_model '{args.srl_model}' not in config for env {args.env}")
+    return os.path.join(models.get("log_folder", ""), models[args.srl_model])
+
+
+def build_env(args, device="cuda"):
+    """The env of ``args.env`` with the options it takes, wrapped in
+    ``SRLEncodedEnv`` for a learned ``--srl-model`` (the encoder on
+    ``device``), frame-stacked when ``--num-stack`` > 1."""
     options = {
         "srl_model": args.srl_model,
         "is_discrete": not args.continuous_actions,
@@ -109,6 +149,11 @@ def build_env(args):
         "coarse_obs": args.coarse_obs,
     }
     env = make_env(args.env, **accepted_kwargs(registered_env[args.env], options))
+    path = srl_model_path(args)
+    if path is not None:
+        from srl_tpu_torch.srl.models import SRLEncodedEnv, loadSRLModel
+
+        env = SRLEncodedEnv(env, loadSRLModel(path, device=device))
     if args.num_stack > 1:
         env = FrameStack(env, args.num_stack)
     return env
@@ -190,14 +235,13 @@ def main(argv=None) -> str:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    env = build_env(args, device)
     log_dir = make_run_dir(args)
     printGreen(f"Log dir: {log_dir}")
     with open(os.path.join(log_dir, "args.json"), "w") as f:
         json.dump({k: v for k, v in vars(args).items()
                    if not k.startswith("not_ported_")}, f, indent=2)
-
-    env = build_env(args)
-    save_env_params(log_dir, env)
+    save_env_params(log_dir, getattr(env, "_env", env))
     agent = PPO2(env=env, num_envs=args.num_envs, device=device)
 
     monitor = MonitorWriter(log_dir, env_id=args.env)

@@ -4,3 +4,7 @@ from __future__ import annotations
 
 def printGreen(text: str):
     print(f"\033[32m{text}\033[0m")
+
+
+def printYellow(text: str):
+    print(f"\033[33m{text}\033[0m")

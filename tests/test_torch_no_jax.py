@@ -1,18 +1,22 @@
 """The port stands alone: no module of srl_tpu_torch, and not chip_smoke.py,
-imports JAX, Flax, Optax or the reference package; and its entry points run
-on the card unless the caller asks for the CPU."""
+imports JAX, Flax, Optax, PyYAML (the machine with the card has none) or the
+reference package; and its entry points run on the card unless the caller
+asks for the CPU."""
 import ast
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
 from srl_tpu_torch.agents.ppo import PPO2
+from srl_tpu_torch.data import dataset_generator
 from srl_tpu_torch.envs.kuka import KukaButtonEnv
-from srl_tpu_torch.experiments import train
+from srl_tpu_torch.experiments import train, train_srl
+from srl_tpu_torch.srl.trainer import SRLTrainer, fit_pca
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "srl_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "srl_tpu", "yaml"}
 SOURCES = sorted((REPO / "srl_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -37,4 +41,13 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch, tmp_path):
         train.main(["--num-envs", "2", "--log-dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         PPO2(env=KukaButtonEnv(), num_envs=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dataset_generator.main(["--env", "MobileRobotGymEnv-v0", "--num-episode", "1",
+                                "--save-path", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SRLTrainer(state_dim=2, losses=["autoencoder"], obs_shape=(8, 8, 3))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fit_pca(np.zeros((2, 4), np.uint8), 1)
     assert not any(tmp_path.iterdir())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_srl.main(["--data-folder", str(tmp_path), "--srl-model", "pca"])
