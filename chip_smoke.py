@@ -34,7 +34,16 @@ Phases, each reported on its own lines; any failure exits non-zero:
    updates, observations [256, 3]; render2d); then record a Kuka dataset at
    render scale 2 (32 envs, 32 episodes of up to 32 frames, 224x224x3;
    render3d), train an autoencoder on it for 1 epoch and serve it to PPO2
-   (512 envs, 2 updates; render3d).
+   (512 envs, 2 updates; render3d);
+6. drive the new envs through the training CLI, the counts set to 0 just
+   before each run and read just after: PPO2 on the mixed Kuka + Omnirobot
+   pixel batch (``--mixed-envs KukaButtonGymEnv-v0 OmnirobotEnv-v0``, 256
+   envs: 128 Kuka traced at render scale 2 by render3d and upsampled, 128
+   Omnirobot rasterised, one [256, 224, 224, 3] batch, 2 updates; render3d
+   must have run), CarRacing from 224x224 pixels (256 envs, 2 updates) and
+   Omnirobot from ground truth (1024 envs, 2 updates); then the Kuka IK
+   debugger (``srl_tpu_torch.envs.debug --target 0.4 0.1 0.35 --steps 200
+   --out DIR``), whose frame render3d traces.
 
 The line before the last is a JSON object with each kernel's numbers, the
 last ``{"ok": true, "device": {...}}``. Needs the card and the rest of the
@@ -99,6 +108,14 @@ SRL_MOBILE_ARGS = ["--env", "MobileRobotGymEnv-v0", "--srl-model", "autoencoder"
 SRL_KUKA_ARGS = ["--env", "KukaButtonGymEnv-v0", "--srl-model", "autoencoder",
                  "--algo", "ppo2", "--num-envs", "512", "--render-scale", "2",
                  "--num-timesteps", "120000", "--no-vis"]
+MIXED_ARGS = ["--env", "KukaButtonGymEnv-v0", "--mixed-envs", "KukaButtonGymEnv-v0",
+              "OmnirobotEnv-v0", "--srl-model", "raw_pixels", "--algo", "ppo2",
+              "--render-scale", "2", "--num-envs", "256", "--num-timesteps", "65536",
+              "--no-vis"]
+CAR_ARGS = ["--env", "CarRacingGymEnv-v0", "--srl-model", "raw_pixels", "--algo", "ppo2",
+            "--num-envs", "256", "--num-timesteps", "60000", "--no-vis"]
+OMNI_GT_ARGS = ["--env", "OmnirobotEnv-v0", "--srl-model", "ground_truth", "--algo", "ppo2",
+                "--num-envs", "1024", "--num-timesteps", "240000", "--no-vis"]
 RUN_FILES = ("args.json", "env_globals.json", "0.monitor.csv", "metrics.jsonl",
              "ppo2_final_model.pkl")
 
@@ -442,6 +459,48 @@ def srl_workflow(torch, train, counters) -> dict:
     return out
 
 
+def new_envs(torch, train, counters) -> dict:
+    """Step 6: the mixed Kuka + Omnirobot pixel run, CarRacing from pixels,
+    Omnirobot from ground truth, and the IK debugger."""
+    from srl_tpu_torch.core.env import VecEnv
+    from srl_tpu_torch.envs import debug
+
+    _, mixed, entries = drive(torch, train, MIXED_ARGS, counters,
+                              "mixed KukaButtonGymEnv-v0 + OmnirobotEnv-v0 raw_pixels 256 envs")
+    if mixed["render3d"] <= 0:
+        raise AssertionError("the mixed pixel path never launched the render3d kernel")
+    log(f"[main] mixed run launches: render3d {mixed['render3d']}, render2d "
+        f"{mixed['render2d']}")
+    # The batch the learner saw: 128 Kuka frames then 128 Omnirobot frames.
+    env = train.build_env(train.parse_args(MIXED_ARGS + ["--device", "cuda"]), "cuda")
+    vec = VecEnv(env, 256)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    vstate, obs = vec.reset(gen)
+    vstate, tr = vec.step(vstate, env.action_space.sample(gen, 256), gen)
+    torch.cuda.synchronize()
+    if tuple(tr.obs.shape) != (256, 224, 224, 3) or tr.obs.dtype != torch.uint8 \
+            or vec.counts != [128, 128]:
+        raise AssertionError(f"mixed batch {tuple(tr.obs.shape)} {tr.obs.dtype} {vec.counts}")
+    kuka_mean, omni_mean = (float(tr.obs[sl].float().mean()) for sl in (slice(0, 128),
+                                                                        slice(128, 256)))
+    log(f"[main] mixed batch {tuple(tr.obs.shape)} {tr.obs.dtype}, families {vec.counts}: "
+        f"mean byte {kuka_mean:.1f} (Kuka) and {omni_mean:.1f} (Omnirobot)")
+    _, car, _ = drive(torch, train, CAR_ARGS, counters, "CarRacingGymEnv-v0 raw_pixels 256 envs")
+    drive(torch, train, OMNI_GT_ARGS, counters, "OmnirobotEnv-v0 ground_truth 1024 envs",
+          obs_shape=(2,))
+    with tempfile.TemporaryDirectory() as tmp:
+        for module in counters.values():
+            module.launches = 0
+        errors = debug.main(["--target", "0.4", "0.1", "0.35", "--steps", "200", "--out", tmp])
+        files = os.listdir(tmp)
+    if len(errors) != 1 or not math.isfinite(errors[0]) or len(files) != 1 \
+            or counters["render3d"].launches <= 0:
+        raise AssertionError(f"envs.debug: errors {errors}, files {files}")
+    log(f"[main] envs.debug: tip error {errors[0]:.4f} after 200 servo steps; wrote {files[0]} "
+        f"(render3d launches {counters['render3d'].launches})")
+    return {"mixed": mixed, "car": car}
+
+
 def main() -> int:
     import torch
 
@@ -539,6 +598,10 @@ def main() -> int:
     # 5. The SRL workflow.
     srl_launches = srl_workflow(torch, train, counters)
     log(f"[srl] launches: {json.dumps(srl_launches)}")
+
+    # 6. The mixed batch, CarRacing, Omnirobot and the IK debugger.
+    new_launches = new_envs(torch, train, counters)
+    log(f"[main] launches: {json.dumps(new_launches)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s after start-up")
 
     print(json.dumps({"kernels": [{

@@ -11,6 +11,10 @@ Same defaults as the reference (n_steps 128, 4 minibatches, 4 epochs, clip
 * the lr anneal indexed by ``optimizer_step // (noptepochs * nminibatches)``;
 * one fresh permutation of the batch per epoch.
 
+A mixed-family env (``core/mixed_env.MixedEnv``) trains unchanged: its
+``VecEnv`` is a ``MixedVecEnv`` whose state is a tuple of per-family
+states.
+
 Parameters are a plain ``{name: tensor}`` dict applied with
 ``torch.func.functional_call``, so ``update_epochs`` is a function of
 (params, Adam state, data, permutations) like the reference's scanned epochs.
@@ -77,20 +81,26 @@ class PPO2(BaseRLAgent):
 
     def __init__(self, env=None, num_envs: int = 16, policy: str = "auto",
                  config: PPOConfig = None, normalize_obs: Optional[bool] = None,
-                 device="cuda"):
+                 env_align: Optional[int] = None, device="cuda"):
         super().__init__()
         self.device = resolve_device(device)
         self.env = env
         self.num_envs = num_envs
         self.config = config or PPOConfig()
         self.policy_kind = policy
+        # Mixed-family envs: the family-slice alignment (None: one device,
+        # core/mixed_env.default_align).
+        self.env_align = env_align
         self.n_updates = 1  # lr-anneal horizon, set by learn()
         if env is not None:
             self._setup(normalize_obs)
 
     def _setup(self, normalize_obs):
         env = self.env
-        self.vec_env = VecEnv(env, self.num_envs)
+        if getattr(env, "is_mixed_family", False):
+            self.vec_env = VecEnv(env, self.num_envs, align=self.env_align)
+        else:
+            self.vec_env = VecEnv(env, self.num_envs)
         self.obs_shape = tuple(env.observation_space.shape)
         self.input_scale = getattr(env, "obs_coarse_scale", 1)
         self.policy: ActorCritic = self._make_policy().to(self.device)

@@ -11,8 +11,10 @@
   the SRL networks (``srl/nets.py``), whose deconv kernels are also
   spatially flipped.
 * ``state_from_numpy`` turns a batched reference env state (as a dict of
-  numpy arrays) into the port's dataclass (``kuka_state_from_numpy`` for
-  ``KukaState``).
+  numpy arrays) into the port's dataclass (``kuka_state_from_numpy``,
+  ``omnirobot_state_from_numpy`` and ``car_racing_state_from_numpy`` for
+  those envs), and ``mixed_state_from_numpy`` a mixed-family batch's tuple
+  of per-family ``VecEnvState``s.
 
 This module imports neither package's framework beyond torch and numpy; the
 tests hand it the reference's arrays.
@@ -175,3 +177,36 @@ def kuka_state_from_numpy(arrays: Dict[str, np.ndarray], device="cpu"):
     from srl_tpu_torch.envs.kuka import KukaState
 
     return state_from_numpy(KukaState, arrays, device)
+
+
+def omnirobot_state_from_numpy(arrays: Dict[str, np.ndarray], render_noise=None,
+                               device="cpu"):
+    """A batched reference ``OmniRobotState`` -> the port's. The reference
+    keeps no render noise in its state (it derives it from its key), so
+    ``render_noise`` [N, 3] is given separately; zeros by default."""
+    from srl_tpu_torch.envs.omnirobot import OmniRobotState
+
+    if render_noise is None:
+        render_noise = np.zeros((len(arrays["robot_pos"]), 3), np.float32)
+    return state_from_numpy(OmniRobotState, {**arrays, "render_noise": render_noise}, device)
+
+
+def car_racing_state_from_numpy(arrays: Dict[str, np.ndarray], device="cpu"):
+    """A batched reference ``CarRacingState`` -> the port's."""
+    from srl_tpu_torch.envs.car_racing import CarRacingState
+
+    return state_from_numpy(CarRacingState, arrays, device)
+
+
+def mixed_state_from_numpy(vstates, converters, device="cpu") -> tuple:
+    """A reference mixed-family vstate (a tuple of per-family ``VecEnvState``s,
+    each given as a dict with ``env_state`` (a dict of numpy arrays),
+    ``ep_return`` and ``ep_length``) -> the port's tuple of ``VecEnvState``s;
+    ``converters[i]`` turns family i's env-state arrays into its port state."""
+    from srl_tpu_torch.core.env import VecEnvState
+
+    return tuple(
+        VecEnvState(env_state=convert(v["env_state"], device=device),
+                    ep_return=torch.as_tensor(np.array(v["ep_return"]), device=device),
+                    ep_length=torch.as_tensor(np.array(v["ep_length"]), device=device))
+        for v, convert in zip(vstates, converters))

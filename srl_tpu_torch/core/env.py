@@ -9,6 +9,8 @@ supply the random numbers itself (the tests feed the ones the JAX env drew):
   * ``draw_step_noise(gen, n)`` / ``apply_step(state, action, noise)``.
 
 ``reset(gen, n)`` and ``step(state, action, gen)`` compose the two.
+``VecEnv(env, n)`` of a mixed-family env (``core/mixed_env.MixedEnv``) is a
+``MixedVecEnv``.
 """
 from __future__ import annotations
 
@@ -133,6 +135,15 @@ class VecEnv:
     that step, the returned observation is the first one of the new episode,
     and the finished episode's return and length ride on the Transition.
     """
+
+    def __new__(cls, env, num_envs: int, *args, **kwargs):
+        # A MixedEnv vectorizes as per-family slices (core/mixed_env.py), so
+        # that every agent's ``VecEnv(env, n)`` takes mixed batches.
+        if cls is VecEnv and getattr(env, "is_mixed_family", False):
+            from srl_tpu_torch.core.mixed_env import MixedVecEnv
+
+            return super().__new__(MixedVecEnv)
+        return super().__new__(cls)
 
     def __init__(self, env: BatchedEnv, num_envs: int):
         self.env = env

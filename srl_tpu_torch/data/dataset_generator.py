@@ -10,11 +10,16 @@ Steps run in chunks of 32 on the device and reach the host as one block.
 
 Policies: random actions (default), a PPO2 trained on ground truth first
 (``--run-ppo2``), or the toward-target expert mixed per env and per step
-with random actions (``--toward-target-timesteps-proportion``).
+with random actions (``--toward-target-timesteps-proportion``; MobileRobot
+only: it reads the state's ``targets``, which Omnirobot's state lacks).
 
 Usage:
   python -m srl_tpu_torch.data.dataset_generator --env MobileRobotGymEnv-v0 \\
       --num-episode 8 --save-path data/ --name mobile_robot_test [--device cpu]
+  python -m srl_tpu_torch.data.dataset_generator --env OmnirobotEnv-v0 \\
+      --num-episode 8 --save-path data/ --name omnirobot [--run-ppo2]
+  python -m srl_tpu_torch.data.dataset_generator --env CarRacingGymEnv-v0 \\
+      --num-episode 8 --max-steps 200 --save-path data/ --name car_racing
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ import torch
 
 from srl_tpu_torch.core.device import resolve_device
 from srl_tpu_torch.core.env import VecEnv
-from srl_tpu_torch.envs.registry import make_env, registered_env
+from srl_tpu_torch.envs.registry import registered_env
 from srl_tpu_torch.srl.episode_saver import EpisodeSaver
 from srl_tpu_torch.utils.logging import printGreen
 
@@ -36,9 +41,9 @@ CHUNK = 32
 
 
 def _make(env_id: str, kwargs: dict):
-    from srl_tpu_torch.experiments.train import accepted_kwargs
+    from srl_tpu_torch.experiments.train import make_with_options
 
-    return make_env(env_id, **accepted_kwargs(registered_env[env_id], kwargs))
+    return make_with_options(env_id, kwargs)
 
 
 def generate_dataset(
@@ -122,6 +127,12 @@ def generate_dataset(
     episodes_recorded = 0
     with torch.no_grad():
         vstate, obs = vec.reset(gen)
+        if policy == "toward_target" and hasattr(vstate.env_state, "robot_pos") \
+                and not hasattr(vstate.env_state, "targets"):
+            # The reference's expert reads env_state.targets[:, 0] whenever
+            # the state has a robot_pos, and so fails on such an env.
+            raise ValueError(f"the toward-target expert needs a state with targets; "
+                             f"{env_id}'s has none")
         first = (obs, env.ground_truth(vstate.env_state), env.target_pos(vstate.env_state))
         obs_np, gts, tgts = (x.cpu().numpy() for x in first)
         buffers = [[(obs_np[i], None, 0.0, gts[i], tgts[i])] for i in range(num_envs)]

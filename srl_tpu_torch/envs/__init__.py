@@ -1,3 +1,4 @@
+from srl_tpu_torch.envs.car_racing import CarRacingEnv
 from srl_tpu_torch.envs.kuka import (
     Kuka2ButtonEnv,
     KukaButtonEnv,
@@ -10,7 +11,8 @@ from srl_tpu_torch.envs.mobile_robot import (
     MobileRobotEnv,
     MobileRobotLineTargetEnv,
 )
-from srl_tpu_torch.envs.registry import make_env, registered_env
+from srl_tpu_torch.envs.omnirobot import OmniRobotEnv
+from srl_tpu_torch.envs.registry import PlottingType, make_env, registered_env
 
 __all__ = [
     "KukaButtonEnv",
@@ -21,6 +23,9 @@ __all__ = [
     "MobileRobot1DEnv",
     "MobileRobot2TargetEnv",
     "MobileRobotLineTargetEnv",
+    "OmniRobotEnv",
+    "CarRacingEnv",
+    "PlottingType",
     "registered_env",
     "make_env",
 ]

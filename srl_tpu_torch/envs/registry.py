@@ -1,8 +1,12 @@
 """Environment registry (counterpart of srl_tpu/envs/registry.py): env id ->
-env class, for the envs the port has."""
+(env class, plotting type), as the reference's ``registered_env`` holds
+them."""
 from __future__ import annotations
 
+from enum import Enum
+
 from srl_tpu_torch.core.registry import Registry
+from srl_tpu_torch.envs.car_racing import CarRacingEnv
 from srl_tpu_torch.envs.kuka import (
     Kuka2ButtonEnv,
     KukaButtonEnv,
@@ -15,15 +19,27 @@ from srl_tpu_torch.envs.mobile_robot import (
     MobileRobotEnv,
     MobileRobotLineTargetEnv,
 )
+from srl_tpu_torch.envs.omnirobot import OmniRobotEnv
+
+
+class PlottingType(Enum):
+    PLOT_2D = 1
+    PLOT_3D = 2
+
 
 registered_env: Registry = Registry("env")
-for _cls in (KukaButtonEnv, KukaRandButtonEnv, Kuka2ButtonEnv, KukaMovingButtonEnv,
-             MobileRobotEnv, MobileRobot1DEnv, MobileRobot2TargetEnv,
-             MobileRobotLineTargetEnv):
-    registered_env.register(_cls.name, _cls)
+for _cls, _plot in (
+        (MobileRobotEnv, PlottingType.PLOT_2D), (MobileRobot1DEnv, PlottingType.PLOT_2D),
+        (MobileRobot2TargetEnv, PlottingType.PLOT_2D),
+        (MobileRobotLineTargetEnv, PlottingType.PLOT_2D),
+        (KukaButtonEnv, PlottingType.PLOT_3D), (KukaRandButtonEnv, PlottingType.PLOT_3D),
+        (Kuka2ButtonEnv, PlottingType.PLOT_3D), (KukaMovingButtonEnv, PlottingType.PLOT_3D),
+        (OmniRobotEnv, PlottingType.PLOT_2D), (CarRacingEnv, PlottingType.PLOT_2D)):
+    registered_env.register(_cls.name, (_cls, _plot))
 
 
 def make_env(env_id: str, **kwargs):
     """Construct a registered env; an unknown id raises KeyError naming the
     known ones."""
-    return registered_env[env_id](**kwargs)
+    env_class, _ = registered_env[env_id]
+    return env_class(**kwargs)

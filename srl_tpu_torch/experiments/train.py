@@ -1,15 +1,19 @@
 """Training entry point (counterpart of srl_tpu/experiments/train.py).
 
-The port's subset of the reference CLI: ``--algo ppo2`` on the four Kuka
-and the four MobileRobot envs with every ``--srl-model`` of the registry,
-optionally with ``--num-stack`` frames. Every env gets the options it takes
-(found by signature, as the reference does). A learned model (type SRL) is
+The port's subset of the reference CLI: ``--algo ppo2`` on every registered
+env (Kuka, MobileRobot, Omnirobot, CarRacing) with every ``--srl-model`` of
+the registry, optionally with ``--num-stack`` frames, or on a mixed batch of
+env families (``--mixed-envs``: one learner over contiguous per-family
+slices, ``core/mixed_env.py``; differing action counts fold modulo each
+family's, with a warning). Every env gets the options it takes (found by
+signature, as the reference does). A learned model (type SRL) is
 resolved as the reference resolves it: ``--latest`` takes the newest
 ``srl_logs/{env}/**/srl_model.pkl``, else ``--srl-config-file`` names its
-checkpoint under the env's ``log_folder``; the env is then wrapped in
-``SRLEncodedEnv`` (render -> encode) before any frame stacking. The run
-directory has the reference's layout,
-``{log-dir}/{env}/{srl_model}/{algo}/{datetime}/`` with ``args.json``, ``env_globals.json``, ``0.monitor.csv``, ``metrics.jsonl``,
+checkpoint under the env's ``log_folder``; the env (each family of a mixed
+batch) is then wrapped in ``SRLEncodedEnv`` (render -> encode) before any
+frame stacking. The run directory has the reference's layout,
+``{log-dir}/{env}/{srl_model}/{algo}/{datetime}/`` with ``args.json``,
+``env_globals.json``, ``0.monitor.csv``, ``metrics.jsonl``,
 ``ppo2_model.pkl`` (best mean reward over the last 100 episodes, once 100
 have finished) and ``ppo2_final_model.pkl``; the reference's
 ``srl_tpu.agents.ppo.PPO2.load`` reads both checkpoints.
@@ -23,6 +27,9 @@ Usage (the README's pixel run, the quickstart, and an encoder trained by
       --srl-model ground_truth --algo ppo2 --num-envs 4096
   python -m srl_tpu_torch.experiments.train --env MobileRobotGymEnv-v0 \\
       --srl-model autoencoder --algo ppo2 --num-envs 256
+  python -m srl_tpu_torch.experiments.train --env KukaButtonGymEnv-v0 \\
+      --mixed-envs KukaButtonGymEnv-v0 OmnirobotEnv-v0 --srl-model raw_pixels \\
+      --render-scale 2 --num-envs 256
 """
 from __future__ import annotations
 
@@ -40,6 +47,8 @@ import torch
 from srl_tpu_torch.agents.ppo import PPO2
 from srl_tpu_torch.core.device import resolve_device
 from srl_tpu_torch.core.frame_stack import FrameStack
+from srl_tpu_torch.core.mixed_env import MixedEnv
+from srl_tpu_torch.core.spaces import Discrete
 from srl_tpu_torch.envs.registry import make_env, registered_env
 from srl_tpu_torch.srl import SRLType
 from srl_tpu_torch.srl.registry import registered_srl
@@ -52,12 +61,12 @@ N_EPISODES_EVAL = 100
 
 # Reference flags this port does not have yet (see ROADMAP.md).
 NOT_PORTED = ("--recompute-obs", "--remat-policy", "--updates-per-call", "--resume",
-              "--mixed-envs", "--load-rl-model-path", "--hyperparam")
+              "--load-rl-model-path", "--hyperparam")
 
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(
-        description="Train PPO2 on the Kuka and MobileRobot envs (PyTorch port)")
+        description="Train PPO2 on the registered envs (PyTorch port)")
     parser.add_argument("--algo", default="ppo2", choices=["ppo2"])
     parser.add_argument("--env", default="KukaButtonGymEnv-v0",
                         choices=list(registered_env.keys()))
@@ -84,6 +93,12 @@ def parse_args(argv=None):
     parser.add_argument("--shape-reward", action="store_true")
     parser.add_argument("--log-dir", default="logs/")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    parser.add_argument("--mixed-envs", nargs="+", default=None, metavar="ENV_ID",
+                        choices=list(registered_env.keys()),
+                        help="train one learner on a batch of these env families, "
+                        "which must share the observation space (raw_pixels at a "
+                        "common shape or equal-dim SRL states); --env still names "
+                        "the run directory and the SRL config entry")
     parser.add_argument("--no-vis", action="store_true",
                         help="accepted for compatibility: the port draws no plots")
     for flag in NOT_PORTED:
@@ -114,6 +129,11 @@ def accepted_kwargs(env_cls, kwargs: dict) -> dict:
     return {k: v for k, v in kwargs.items() if k in accepted}
 
 
+def make_with_options(env_id: str, options: dict):
+    """The env ``env_id`` built with the entries of ``options`` it takes."""
+    return make_env(env_id, **accepted_kwargs(registered_env[env_id][0], options))
+
+
 def srl_model_path(args):
     """The checkpoint of a learned ``--srl-model``, or None for a mode the
     env provides."""
@@ -137,9 +157,11 @@ def srl_model_path(args):
 
 
 def build_env(args, device="cuda"):
-    """The env of ``args.env`` with the options it takes, wrapped in
-    ``SRLEncodedEnv`` for a learned ``--srl-model`` (the encoder on
-    ``device``), frame-stacked when ``--num-stack`` > 1."""
+    """The env of ``args.env``, or the ``MixedEnv`` of ``--mixed-envs``, each
+    env with the options it takes, wrapped in ``SRLEncodedEnv`` for a learned
+    ``--srl-model`` (the encoder on ``device``; each family of a mixed batch
+    is wrapped, never the MixedEnv), frame-stacked when ``--num-stack`` >
+    1."""
     options = {
         "srl_model": args.srl_model,
         "is_discrete": not args.continuous_actions,
@@ -148,12 +170,25 @@ def build_env(args, device="cuda"):
         "render_scale": args.render_scale,
         "coarse_obs": args.coarse_obs,
     }
-    env = make_env(args.env, **accepted_kwargs(registered_env[args.env], options))
+    wrap = lambda e: e
     path = srl_model_path(args)
     if path is not None:
         from srl_tpu_torch.srl.models import SRLEncodedEnv, loadSRLModel
 
-        env = SRLEncodedEnv(env, loadSRLModel(path, device=device))
+        model = loadSRLModel(path, device=device)
+        wrap = lambda e: SRLEncodedEnv(e, model)
+    if getattr(args, "mixed_envs", None):
+        families = [wrap(make_with_options(e, options)) for e in args.mixed_envs]
+        sizes = [f.action_space.n for f in families if isinstance(f.action_space, Discrete)]
+        if len(set(sizes)) > 1:
+            printYellow(
+                f"--mixed-envs families have differing action counts {sizes}: shared "
+                f"actions beyond a family's range fold back modulo its count (skews that "
+                f"family's action distribution under exploration; construct MixedEnv with "
+                f"explicit action_tables for task-specific semantics)")
+        env = MixedEnv(families, oob_action="modulo")
+    else:
+        env = wrap(make_with_options(args.env, options))
     if args.num_stack > 1:
         env = FrameStack(env, args.num_stack)
     return env

@@ -87,6 +87,17 @@ def fk(q: torch.Tensor):
     return torch.stack(joint_pos, 1), torch.stack(joint_axis, 1), R, p_flange, p_tip
 
 
+def tip_position(q: torch.Tensor) -> torch.Tensor:
+    """[N, 3] fingertip positions of [N, 7] joint angles."""
+    return fk(q)[4]
+
+
+def gripper_position(q: torch.Tensor) -> torch.Tensor:
+    """[N, 3] gripper-link positions (the reference's getArmPos)."""
+    _, _, R, p_flange, _ = fk(q)
+    return p_flange + GRIPPER_OFFSET * R[:, :, 2]
+
+
 def fk_points(q: torch.Tensor):
     """(p_flange, p_gripper, p_tip), each [N, 3], from one FK pass."""
     _, _, R, p_flange, p_tip = fk(q)

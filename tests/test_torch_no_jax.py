@@ -11,6 +11,7 @@ import torch
 
 from srl_tpu_torch.agents.ppo import PPO2
 from srl_tpu_torch.data import dataset_generator
+from srl_tpu_torch.envs import debug
 from srl_tpu_torch.envs.kuka import KukaButtonEnv
 from srl_tpu_torch.experiments import train, train_srl
 from srl_tpu_torch.srl.trainer import SRLTrainer, fit_pca
@@ -39,6 +40,16 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train.main(["--num-envs", "2", "--log-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--num-envs", "2", "--log-dir", str(tmp_path), "--mixed-envs",
+                    "KukaButtonGymEnv-v0", "OmnirobotEnv-v0"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        debug.main(["--target", "0.4", "0.1", "0.35", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        debug.render_frame(np.zeros(7, np.float32), str(tmp_path / "frame.png"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dataset_generator.main(["--env", "OmnirobotEnv-v0", "--num-episode", "1",
+                                "--save-path", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         PPO2(env=KukaButtonEnv(), num_envs=2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
