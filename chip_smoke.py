@@ -43,7 +43,21 @@ Phases, each reported on its own lines; any failure exits non-zero:
    must have run), CarRacing from 224x224 pixels (256 envs, 2 updates) and
    Omnirobot from ground truth (1024 envs, 2 updates); then the Kuka IK
    debugger (``srl_tpu_torch.envs.debug --target 0.4 0.1 0.35 --steps 200
-   --out DIR``), whose frame render3d traces.
+   --out DIR``), whose frame render3d traces;
+7. PPO2's full surface and the other agents on the Kuka pixel path (256
+   envs, 112x112 coarse traces, the Nature CNN), the counts set to 0 just
+   before each run: one rollout storing env states, one minibatch of 8,192
+   of them re-rendered by render3d and bit-equal to the frames the rollout
+   saw; render3d at N=8,192 against its twin (run in chunks of 256 envs)
+   and timed with its bound; ``--recompute-obs --checkpoint-interval 1``
+   for 2 updates (render3d launches 16 more times an update than the
+   frame-storing run of step 4); ``--resume`` of that run for 2 more updates
+   (the checkpoint's steps grow, the monitor keeps one header, the final
+   model loads); ``--load-rl-model-path`` of its first model with
+   ``--hyperparam learning_rate:0`` for 1 update (the saved parameters equal
+   the loaded ones bit for bit); A2C (256 envs), PPO1 (64 envs, 256 steps)
+   and TRPO (64 envs) for 2 updates each, every loss finite and render3d
+   launched.
 
 The line before the last is a JSON object with each kernel's numbers, the
 last ``{"ok": true, "device": {...}}``. Needs the card and the rest of the
@@ -60,6 +74,8 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -349,39 +365,59 @@ def compare_render2d(torch, dev, mobile_robot, render2d):
     return max_err, main_inputs
 
 
-def drive(torch, train, argv, counters, what, obs_shape=None):
+# The metrics each agent logs per update, all of which must be finite.
+PPO_KEYS = ("pg_loss", "vf_loss", "entropy", "approx_kl", "explained_variance",
+            "mean_reward_per_step")
+A2C_KEYS = ("pg_loss", "vf_loss", "entropy", "explained_variance", "mean_reward_per_step")
+TRPO_KEYS = ("surrogate_improve", "kl", "line_search_accepted", "mean_reward_per_step")
+
+
+def run_cli(torch, train, argv, counters, what, keys=PPO_KEYS):
     """Run the CLI with every launch count set to 0 just before; returns
-    (seconds, launches per kernel, metrics lines). With ``obs_shape``, the
-    run's observation normalizer must have that shape (the observations
-    PPO2 saw)."""
+    (log dir, seconds, launches per kernel, this run's metrics lines), every
+    logged metric of ``keys`` finite. A resumed run's rate counts its own
+    steps only."""
+    prior = []
+    if "--resume" in argv:
+        with open(os.path.join(argv[argv.index("--resume") + 1], "metrics.jsonl")) as fh:
+            prior = [json.loads(line) for line in fh]
+    for module in counters.values():
+        module.launches = 0
+    t0 = time.perf_counter()
+    log_dir = train.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: module.launches for name, module in counters.items()}
+    with open(os.path.join(log_dir, "metrics.jsonl")) as fh:
+        entries = [json.loads(line) for line in fh][len(prior):]
+    for e in entries:
+        for k in keys:
+            if not math.isfinite(e[k]):
+                raise AssertionError(f"{what}, update {e['update']}: {k} = {e[k]}")
+    steps = entries[-1]["num_timesteps"] - (prior[-1]["num_timesteps"] if prior else 0)
+    log(f"[main] {what}: {len(entries)} updates, {steps} env steps in "
+        f"{seconds:.1f} s: {steps / seconds:.0f} env-steps/s end to end (last update's "
+        f"running rate {entries[-1]['fps']:.0f}); launches {launches}; finite: "
+        + ", ".join(" ".join(f"{k} {e[k]:.4g}" for k in keys[:2]) for e in entries))
+    return log_dir, seconds, launches, entries
+
+
+def drive(torch, train, argv, counters, what, obs_shape=None, keys=PPO_KEYS):
+    """A CLI run in a temporary log dir: (seconds, launches per kernel,
+    metrics lines). With ``obs_shape``, the run's observation normalizer
+    must have that shape (the observations the agent saw)."""
+    algo = argv[argv.index("--algo") + 1]
     with tempfile.TemporaryDirectory() as tmp:
-        for module in counters.values():
-            module.launches = 0
-        t0 = time.perf_counter()
-        log_dir = train.main(argv + ["--log-dir", tmp, "--device", "cuda"])
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = {name: module.launches for name, module in counters.items()}
+        log_dir, seconds, launches, entries = run_cli(
+            torch, train, argv + ["--log-dir", tmp, "--device", "cuda"], counters, what, keys)
         for f in RUN_FILES:
-            if not os.path.isfile(os.path.join(log_dir, f)):
+            if not os.path.isfile(os.path.join(log_dir, f.replace("ppo2", algo))):
                 raise AssertionError(f"{what}: run dir lacks {f}")
         if obs_shape is not None:
-            with open(os.path.join(log_dir, "ppo2_final_model.pkl"), "rb") as fh:
+            with open(os.path.join(log_dir, f"{algo}_final_model.pkl"), "rb") as fh:
                 mean = pickle.load(fh)["obs_norm"]["mean"]
             if tuple(mean.shape) != tuple(obs_shape):
                 raise AssertionError(f"{what}: observations {mean.shape}, not {obs_shape}")
-        with open(os.path.join(log_dir, "metrics.jsonl")) as fh:
-            entries = [json.loads(line) for line in fh]
-    for e in entries:
-        for k in ("pg_loss", "vf_loss", "entropy", "approx_kl", "explained_variance",
-                  "mean_reward_per_step"):
-            if not math.isfinite(e[k]):
-                raise AssertionError(f"{what}, update {e['update']}: {k} = {e[k]}")
-    steps = entries[-1]["num_timesteps"]
-    log(f"[main] {what}: {len(entries)} PPO2 updates, {steps} env steps in "
-        f"{seconds:.1f} s: {steps / seconds:.0f} env-steps/s end to end (last update's "
-        f"running rate {entries[-1]['fps']:.0f}); launches {launches}; losses finite: "
-        + ", ".join(f"pg {e['pg_loss']:.4g} vf {e['vf_loss']:.4g}" for e in entries))
     return seconds, launches, entries
 
 
@@ -501,6 +537,178 @@ def new_envs(torch, train, counters) -> dict:
     return {"mixed": mixed, "car": car}
 
 
+def with_flags(args, **flags):
+    """``args`` with each ``--flag value`` of ``flags`` (``num_timesteps=...``)
+    set, replaced where ``args`` has it."""
+    args = list(args)
+    for name, value in flags.items():
+        flag = "--" + name.replace("_", "-")
+        if flag in args:
+            args[args.index(flag) + 1] = str(value)
+        else:
+            args += [flag, str(value)]
+    return args
+
+
+# Phase 7's runs on the Kuka pixel path (KUKA_ARGS: 256 envs, 112x112 coarse
+# traces, the Nature CNN): a fine-tune of 1 PPO2 update; A2C (5 steps an
+# update), PPO1 (64 envs, 256 steps) and TRPO (64 envs, 128 steps), 2 updates
+# each.
+FINETUNE_ARGS = with_flags(KUKA_ARGS, num_timesteps=30000)
+A2C_ARGS = with_flags(KUKA_ARGS, algo="a2c", num_timesteps=2400)
+PPO1_ARGS = with_flags(KUKA_ARGS, algo="ppo1", num_envs=64, num_timesteps=30000)
+TRPO_ARGS = with_flags(KUKA_ARGS, algo="trpo", num_envs=64, num_timesteps=15000)
+# PPO2's minibatch: 128 steps x 256 envs / 4 minibatches.
+MINIBATCH = 128 * 256 // 4
+
+
+def final_params(path) -> list:
+    """The parameter arrays of a saved policy, in sorted-path order."""
+    with open(path, "rb") as fh:
+        payload = pickle.load(fh)
+    leaves = []
+
+    def walk(node):
+        for k in sorted(node):
+            if isinstance(node[k], dict):
+                walk(node[k])
+            else:
+                leaves.append(node[k])
+
+    walk(payload["params"])
+    return leaves
+
+
+def recompute_minibatch(torch, train, render3d, dev) -> dict:
+    """One Kuka pixel rollout (256 envs, 128 steps) storing env states, its
+    frames recorded as the policy saw them; one minibatch of 8,192 re-rendered
+    by render3d must equal its stored frames bit for bit. Then render3d at
+    that N against its twin (in chunks of 256 envs), timed, with its bound."""
+    from srl_tpu_torch.agents.common import collect_rollout
+    from srl_tpu_torch.agents.ppo import PPO2
+    from srl_tpu_torch.core.env import state_map
+
+    env = train.build_env(train.parse_args(KUKA_ARGS + ["--device", "cuda"]), "cuda")
+    agent = PPO2(env=env, num_envs=256, recompute_obs=True, device="cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = agent.init_state(gen)
+    seen = []
+
+    def policy(obs):
+        seen.append(obs)
+        return agent.apply(state.params, obs)
+
+    batch = collect_rollout(agent.vec_env, policy, state.vstate, state.obs, None, gen, 128,
+                            store_states=True)[-1]
+    frames = torch.stack(seen).flatten(0, 1)
+    states = state_map(lambda x: x.flatten(0, 1), batch.obs)
+    idx = torch.randperm(frames.shape[0], generator=gen, device=dev)[:MINIBATCH]
+    mb = state_map(lambda x: x[idx], states)
+    render3d.launches = 0
+    again = env.observe(mb)
+    torch.cuda.synchronize()
+    if render3d.launches != 1 or not torch.equal(again, frames[idx]):
+        raise AssertionError(f"re-rendered minibatch: {render3d.launches} launches, "
+                             f"{int((again != frames[idx]).sum())} values differ")
+    log(f"[recompute] one minibatch of {MINIBATCH} env states re-rendered by render3d "
+        f"{tuple(again.shape)}: bit-equal to the frames the rollout stored")
+    cfg, scene = render3d._scene_table(env, mb)
+    cam = render3d.camera_tensors(cfg, dev)
+    out = render3d.render_kuka_cuda(cfg, scene, cam)
+    plain = torch.cat([render3d.render_kuka_plain(cfg, scene[i:i + 256], cam.eyes, cam.rays,
+                                                  cam.bg) for i in range(0, MINIBATCH, 256)])
+    diff = (out.to(torch.int32) - plain.to(torch.int32)).abs()
+    equal, off = (diff == 0).double().mean().item(), (diff > 2).double().mean().item()
+    log(f"[compare] render3d N={MINIBATCH} {tuple(out.shape)}: against the twin "
+        f"{equal:.6f} equal, {off:.6f} off by more than 2, max |diff| {int(diff.max())}")
+    if not (equal > 0.995 and off < 0.005):
+        raise AssertionError(f"render3d disagrees with the twin at N={MINIBATCH}")
+    outs = rotating(torch, out.shape, dev)
+    ms = time_ms(lambda: render3d.render_kuka_cuda(cfg, scene, cam, out=next(outs)), 50)
+    bound = render_bound_ms(render3d, cfg, scene)
+    log(f"[time] render3d N={MINIBATCH} trace {cfg.trace_h}x{cfg.trace_w}: kernel "
+        f"{ms:.4f} ms over rotating outputs; bound_ms {bound['bound_ms']:.5f} "
+        f"({bound['bound_by']}; {bound['bound_ms'] / ms:.1%} of it); culling keeps "
+        f"{bound['kept_per_pixel']:.4f} primitives per pixel")
+    return dict(ms=ms, max_abs_err=int(diff.max()), **bound)
+
+
+def full_surface(torch, train, counters, stored_launches: int, stored_seconds: float) -> dict:
+    """Step 7: PPO2's --recompute-obs with checkpoints, --resume,
+    --load-rl-model-path, and A2C, PPO1 and TRPO, on the Kuka pixel path."""
+    from srl_tpu_torch.agents.base import BaseRLAgent
+    from srl_tpu_torch.agents.ppo import PPO2
+    from srl_tpu_torch.ops import render3d
+
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        argv = KUKA_ARGS + ["--recompute-obs", "--checkpoint-interval", "1",
+                            "--log-dir", os.path.join(root, "a"), "--device", "cuda"]
+        log_dir, seconds, launches, entries = run_cli(
+            torch, train, argv, counters, "KukaButtonGymEnv-v0 raw_pixels 256 envs "
+            "--recompute-obs --checkpoint-interval 1")
+        extra = launches["render3d"] - stored_launches
+        log(f"[recompute] render3d launches {launches['render3d']} against {stored_launches} "
+            f"storing frames: {extra} in {len(entries)} updates; {seconds:.1f} s against "
+            f"{stored_seconds:.1f} s storing frames")
+        if extra != 16 * len(entries):
+            raise AssertionError(f"--recompute-obs added {extra} render3d launches, not "
+                                 f"16 per update")
+        out["recompute_obs"] = launches["render3d"]
+        first_model = os.path.join(root, "first_model.pkl")
+        os.replace(os.path.join(log_dir, "ppo2_final_model.pkl"), first_model)
+
+        ckpt = os.path.join(log_dir, "checkpoint.pkl")
+        _, meta = BaseRLAgent.load_checkpoint(ckpt)
+        with open(os.path.join(log_dir, "args.json")) as fh:
+            stored = json.load(fh)
+        stored["num_timesteps"] *= 2
+        with open(os.path.join(log_dir, "args.json"), "w") as fh:
+            json.dump(stored, fh)
+        _, _, launches, _ = run_cli(
+            torch, train, ["--resume", log_dir, "--checkpoint-interval", "1", "--device",
+                           "cuda"], counters, "the same run resumed (--resume)")
+        _, meta2 = BaseRLAgent.load_checkpoint(ckpt)
+        with open(os.path.join(log_dir, "0.monitor.csv")) as fh:
+            headers = fh.read().count("r,l,t")
+        env = train.build_env(train.parse_args(KUKA_ARGS + ["--device", "cuda"]), "cuda")
+        resumed = PPO2.load(os.path.join(log_dir, "ppo2_final_model.pkl"), env, None,
+                            device="cuda")
+        action = resumed.getAction(np.zeros((2, 112, 112, 3), np.uint8), None, True)
+        log(f"[resume] checkpoint num_timesteps {meta['num_timesteps']} -> "
+            f"{meta2['num_timesteps']}, update {meta2['update']}; monitor headers "
+            f"{headers}; the final model loads and acts {action.tolist()}")
+        if not (meta2["num_timesteps"] > meta["num_timesteps"] and headers == 1
+                and launches["render3d"] > 0):
+            raise AssertionError(f"resume: meta {meta} -> {meta2}, {headers} headers")
+
+        ft_dir, _, launches, _ = run_cli(
+            torch, train, FINETUNE_ARGS + ["--load-rl-model-path", first_model,
+                                           "--hyperparam", "learning_rate:0", "--log-dir",
+                                           os.path.join(root, "c"), "--device", "cuda"],
+            counters, "fine-tune (--load-rl-model-path, learning_rate:0)")
+        before = final_params(first_model)
+        after = final_params(os.path.join(ft_dir, "ppo2_final_model.pkl"))
+        same = all(np.array_equal(a, b) for a, b in zip(before, after))
+        log(f"[finetune] {len(after)} parameter arrays bit-equal to the loaded model: {same}")
+        if not same or len(before) != len(after) or launches["render3d"] <= 0:
+            raise AssertionError("fine-tuning at learning rate 0 changed the parameters")
+
+    for name, args, keys in (("a2c", A2C_ARGS, A2C_KEYS), ("ppo1", PPO1_ARGS, PPO_KEYS),
+                             ("trpo", TRPO_ARGS, TRPO_KEYS)):
+        n_envs = args[args.index("--num-envs") + 1]
+        _, launches, entries = drive(torch, train, args, counters,
+                                     f"{name} KukaButtonGymEnv-v0 raw_pixels {n_envs} envs",
+                                     keys=keys)
+        if launches["render3d"] <= 0 or len(entries) != 2:
+            raise AssertionError(f"{name}: {len(entries)} updates, launches {launches}")
+        if name == "trpo":
+            log("[main] trpo line_search_accepted, kl by update: " + ", ".join(
+                f"{e['line_search_accepted']:.0f}, {e['kl']:.5f}" for e in entries))
+        out[name] = launches["render3d"]
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -582,8 +790,8 @@ def main() -> int:
 
     # 4. The main paths, each with the counts set to 0 just before it.
     counters = {"render3d": render3d, "render2d": render2d}
-    _, kuka_launches, _ = drive(torch, train, KUKA_ARGS, counters,
-                                "KukaButtonGymEnv-v0 raw_pixels 256 envs")
+    kuka_seconds, kuka_launches, _ = drive(torch, train, KUKA_ARGS, counters,
+                                           "KukaButtonGymEnv-v0 raw_pixels 256 envs")
     if kuka_launches["render3d"] <= 0:
         raise AssertionError("the Kuka pixel path never launched the render3d kernel")
     _, mobile_launches, _ = drive(torch, train, MOBILE_ARGS, counters,
@@ -602,6 +810,12 @@ def main() -> int:
     # 6. The mixed batch, CarRacing, Omnirobot and the IK debugger.
     new_launches = new_envs(torch, train, counters)
     log(f"[main] launches: {json.dumps(new_launches)}")
+
+    # 7. PPO2's full surface and the other agents on the Kuka pixel path.
+    mb = recompute_minibatch(torch, train, render3d, dev)
+    surface_launches = full_surface(torch, train, counters, kuka_launches["render3d"],
+                                    kuka_seconds)
+    log(f"[main] render3d launches: {json.dumps(surface_launches)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s after start-up")
 
     print(json.dumps({"kernels": [{
@@ -610,7 +824,8 @@ def main() -> int:
         "source": "srl_tpu_torch/csrc/render3d.cu",
         "replaces": "srl_tpu/ops/pallas_render3d.py:480",
         "launches": kuka_launches["render3d"],
-        "max_abs_err": r3_err,
+        "recompute_obs_launches": surface_launches["recompute_obs"],
+        "max_abs_err": max(r3_err, mb["max_abs_err"]),
         "ms": r3_ms,
         "plain_ms": r3_plain_ms,
         "bound_ms": r3_bound["bound_ms"],

@@ -1,20 +1,216 @@
-"""Base RL agent (counterpart of srl_tpu/agents/base.py): the pickle
-payload helpers shared by the agents."""
+"""Base RL agent (counterpart of srl_tpu/agents/base.py): the CLI surface
+(``customArguments``, ``getOptParam``, ``parserHyperParam``), acting
+(``getAction``, ``getActionProba``), the policy pickle every agent writes and
+reads, and full training-state checkpoints.
+
+Checkpoints (``save_checkpoint`` / ``load_checkpoint``) have the reference's
+format: ``{"state": PPOState, "meta": {...}}`` with the reference's class
+names (``bridge.write_reference_pickle``), so each package resumes the
+other's. The port adds ``"torch_generator"``, its generator's state and
+device type, which the reference ignores.
+"""
 from __future__ import annotations
 
+import dataclasses
 import os
 import pickle
+import time
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
+from torch.func import functional_call
+
+from srl_tpu_torch import bridge
+from srl_tpu_torch.core.env import VecEnv, VecEnvState
+from srl_tpu_torch.core.normalize import RunningNorm
+from srl_tpu_torch.core.spaces import Discrete
+from srl_tpu_torch.models.policies import ActorCritic, make_policy
+
+
+@dataclasses.dataclass
+class PPOState:
+    """The training state of the actor-critic agents (PPO2, PPO1, A2C,
+    TRPO)."""
+
+    params: Dict[str, torch.Tensor]
+    # Optimizer state: {"count": steps taken, "mu"/"nu": {...}} per agent.
+    opt_state: Optional[dict]
+    vstate: Optional[VecEnvState]
+    obs: Optional[torch.Tensor]
+    obs_norm: Optional[RunningNorm]
+    update_idx: int = 0
 
 
 class BaseRLAgent:
+    """Common interface of the agents. A subclass sets ``config_class`` and
+    ``opt_init``, and calls ``_setup`` once it has its env; its
+    ``train_iteration(state, gen)`` returns (state', metrics)."""
+
     name = "base"
     LOG_INTERVAL = 10
+    SAVE_INTERVAL = 1
+    config_class = None
 
     def __init__(self):
         self.state = None
+        self._act_gen = None
+        self.pretrained = None  # a loaded policy's state to fine-tune from
 
+    # ---- env, policy and state ------------------------------------------
+    def _setup(self, normalize_obs, input_scale: int = 1, env_align=None):
+        """The vector env, the policy (``input_scale``: the conv1 fold of
+        coarse observations) and whether observations are normalized
+        (VecNormalize for every observation but raw pixels)."""
+        env = self.env
+        if getattr(env, "is_mixed_family", False):
+            self.vec_env = VecEnv(env, self.num_envs, align=env_align)
+        else:
+            self.vec_env = VecEnv(env, self.num_envs)
+        self.obs_shape = tuple(env.observation_space.shape)
+        self.input_scale = input_scale
+        self.policy: ActorCritic = self._make_policy().to(self.device)
+        if normalize_obs is None:
+            normalize_obs = env.srl_model != "raw_pixels"
+        self.normalize_obs = normalize_obs
+
+    def _make_policy(self) -> ActorCritic:
+        return make_policy(self.env.action_space, self.obs_shape, self.policy_kind,
+                           input_scale=self.input_scale)
+
+    def apply(self, params: Dict[str, torch.Tensor], obs: torch.Tensor):
+        """(distribution, value) of the policy with ``params``."""
+        return functional_call(self.policy, params, (obs,))
+
+    def init_params(self, seed: int) -> Dict[str, torch.Tensor]:
+        """Fresh orthogonal-init parameters drawn from ``seed``."""
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            fresh = self._make_policy()
+        return {k: v.detach().to(self.device) for k, v in fresh.state_dict().items()}
+
+    def init_state(self, gen: torch.Generator, seed: int = 0) -> PPOState:
+        """A fresh env batch and optimizer; fresh parameters and normalizer
+        from ``seed``, or those of ``self.pretrained`` (a loaded policy's
+        state: the fine-tuning start) when it is set."""
+        vstate, obs = self.vec_env.reset(gen)
+        if self.pretrained is not None:
+            params = {k: v.detach().clone() for k, v in self.pretrained.params.items()}
+            obs_norm = self.pretrained.obs_norm
+        else:
+            params = self.init_params(seed)
+            obs_norm = None
+        if obs_norm is None and self.normalize_obs:
+            obs_norm = RunningNorm.create(self.obs_shape, self.device)
+        return PPOState(params=params, opt_state=self.opt_init(params), vstate=vstate,
+                        obs=obs, obs_norm=obs_norm)
+
+    # ---- the training loop ------------------------------------------------
+    def _start(self, seed: int) -> torch.Generator:
+        """The run's generator, kept for its checkpoints."""
+        self.seed = seed
+        self.gen = torch.Generator(device=self.device)
+        self.gen.manual_seed(seed)
+        return self.gen
+
+    def _run(self, state: PPOState, n_updates: int, callback: Optional[Callable],
+             updates_per_call: int = 1) -> PPOState:
+        """``n_updates`` updates from ``state``, rounded up to whole calls of
+        ``updates_per_call`` updates, calling ``callback(locals, globals)``
+        after each call with its updates' metrics averaged. The episode
+        statistics reach the host once a call."""
+        steps_per_update = self.config.n_steps * self.num_envs
+        k = max(1, min(updates_per_call, n_updates))
+        episode_returns, episode_lengths = [], []
+        t_start = time.time()
+        num_timesteps = 0
+        for update in range(0, n_updates, k):
+            stats = []
+            for _ in range(k):
+                state, metrics = self.train_iteration(state, self.gen)
+                stats.append(metrics)
+            self.state = state
+            num_timesteps += steps_per_update * k
+            ep_ret = torch.stack([m.pop("episode_return") for m in stats]).cpu().numpy()
+            ep_len = torch.stack([m.pop("episode_length") for m in stats]).cpu().numpy()
+            finished = ~np.isnan(ep_ret)
+            episode_returns.extend(ep_ret[finished].tolist())
+            episode_lengths.extend(ep_len[finished].tolist())
+            if callback is not None:
+                callback({
+                    "self": self,
+                    "state": state,
+                    "update": update + k - 1,
+                    "n_updates": n_updates,
+                    "num_timesteps": num_timesteps,
+                    "episode_returns": episode_returns,
+                    "episode_lengths": episode_lengths,
+                    "metrics": {name: float(torch.stack([m[name] for m in stats]).mean())
+                                for name in stats[0]},
+                    "fps": num_timesteps / max(time.time() - t_start, 1e-9),
+                }, {})
+        self.state = state
+        return state
+
+    # ---- CLI integration ------------------------------------------------
+    def customArguments(self, parser):
+        parser.add_argument("--num-envs", help="Number of batched environments "
+                            "(replaces --num-cpu)", type=int, default=None)
+        return parser
+
+    @classmethod
+    def getOptParam(cls) -> Optional[Dict[str, tuple]]:
+        return None
+
+    @classmethod
+    def parserHyperParam(cls, hyperparam):
+        """Parse 'k:v' strings against the ``getOptParam`` declarations."""
+        opt_param = cls.getOptParam()
+        parsed = {}
+        if hyperparam:
+            assert opt_param is not None, (
+                "Error: cannot parse hyperparameters for {}".format(cls.name)
+            )
+            for kv in hyperparam:
+                assert ":" in kv, "Error: hyperparam must be of format 'name:value'"
+                k, v = kv.split(":", 1)
+                assert k in opt_param, f"Error: unknown hyperparam {k}"
+                parsed[k] = opt_param[k][0](v)
+        return parsed
+
+    # ---- acting ---------------------------------------------------------
+    def _act_dist(self, observation):
+        obs = torch.as_tensor(np.asarray(observation), device=self.device)
+        if self.state.obs_norm is not None:
+            obs = self.state.obs_norm.normalize(obs)
+        dist, _ = self.apply(self.state.params, obs)
+        return dist
+
+    @torch.no_grad()
+    def getAction(self, observation, dones=None, deterministic: bool = False, *,
+                  gen: Optional[torch.Generator] = None):
+        """Actions for a batch of observations. Without ``gen``, sampling
+        draws from the agent's own generator, seeded with 0, which only
+        sampling consumes. ``dones`` is there for recurrent agents."""
+        dist = self._act_dist(observation)
+        if deterministic:
+            return dist.mode().cpu().numpy()
+        if gen is None:
+            if self._act_gen is None:
+                self._act_gen = torch.Generator(device=self.device)
+                self._act_gen.manual_seed(0)
+            gen = self._act_gen
+        return dist.sample(gen).cpu().numpy()
+
+    @torch.no_grad()
+    def getActionProba(self, observation, dones=None):
+        """Action probabilities (``Discrete``), else the Gaussian's mean."""
+        dist = self._act_dist(observation)
+        if isinstance(self.env.action_space, Discrete):
+            return dist.probs().cpu().numpy()
+        return dist.mean.cpu().numpy()
+
+    # ---- the policy pickle (the reference's payload) ----------------------
     @staticmethod
     def _to_numpy(tree):
         """Tensors of a (nested) dict -> numpy arrays."""
@@ -29,3 +225,113 @@ class BaseRLAgent:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         with open(path, "wb") as f:
             pickle.dump(payload, f)
+
+    @staticmethod
+    def _load_pickle(path: str) -> dict:
+        """Only load files this program or the reference wrote: unpickling
+        runs code."""
+        with open(path, "rb") as f:
+            return pickle.load(f)
+
+    def save(self, save_path: str, _locals=None):
+        norm = self.state.obs_norm
+        self._save_pickle(save_path, {
+            "name": self.name,
+            "config": dataclasses.asdict(self.config),
+            "num_envs": self.num_envs,
+            "policy_kind": self.policy_kind,
+            "normalize_obs": self.normalize_obs,
+            "params": bridge.state_dict_to_flax(self.state.params,
+                                                self.policy.torso_kind),
+            "obs_norm": (self._to_numpy({"mean": norm.mean, "var": norm.var,
+                                         "count": norm.count})
+                         if norm is not None else None),
+        })
+
+    @classmethod
+    def load(cls, load_path: str, env=None, args=None, *, device="cuda"):
+        """The agent of a policy pickle (either package's), its parameters
+        and normalizer on ``device``; ``args`` is unused, as in the
+        reference."""
+        d = bridge.load_jax_checkpoint(load_path)
+        agent = cls(env=env, num_envs=d["num_envs"], policy=d["policy_kind"],
+                    config=cls.config_class(**d["config"]),
+                    normalize_obs=d["normalize_obs"], device=device)
+        dev = agent.device
+        obs_norm = None
+        if d["obs_norm"] is not None:
+            obs_norm = RunningNorm(
+                **{k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+                   for k, v in d["obs_norm"].items()})
+        params = {k: v.to(dev) for k, v in d["state_dict"].items()}
+        agent.state = PPOState(params=params, opt_state=None, vstate=None, obs=None,
+                               obs_norm=obs_norm)
+        return agent
+
+    # ---- full training-state checkpoints ----------------------------------
+    # A subclass that writes checkpoints provides
+    # ``opt_state_to_reference(opt_state)``, its optimizer state as the
+    # reference's optax state (``bridge.Record``s); one that resumes them,
+    # ``opt_state_from_reference(ref)``, the converse.
+    def _flax(self, tree):
+        return bridge.state_dict_to_flax(tree, self.policy.torso_kind)
+
+    def _state_dict(self, tree):
+        return {k: v.to(self.device) for k, v in
+                bridge.flax_to_state_dict(tree, self.policy.torso_kind).items()}
+
+    def save_checkpoint(self, path: str, meta: Optional[dict] = None):
+        """Atomically write the whole training state (parameters, optimizer,
+        env batch, observations, normalizer, update counter, the
+        generator's state) and the progress ``meta``."""
+        s = self.state
+        ref = bridge.Record("srl_tpu.agents.ppo.PPOState", {
+            "params": self._flax(s.params),
+            "opt_state": self.opt_state_to_reference(s.opt_state),
+            "vstate": bridge.to_reference(s.vstate, self.seed),
+            "obs": s.obs.detach().cpu().numpy(),
+            "obs_norm": bridge.to_reference(s.obs_norm),
+            "key": bridge.fresh_keys(self.seed, 1)[0],
+            "update_idx": np.asarray(s.update_idx, np.int32),
+        })
+        bridge.write_reference_pickle({
+            "state": ref, "meta": meta or {},
+            "torch_generator": {"device_type": self.gen.device.type,
+                                "state": self.gen.get_state().numpy()},
+        }, path)
+
+    @staticmethod
+    def load_checkpoint(path: str):
+        """(training state, meta) of a checkpoint of either package; pass the
+        state as ``learn(initial_state=...)``. The state is the reference's
+        ``PPOState`` as a ``bridge.Record``; ``state.torch_generator`` is the
+        port's generator state, None in a reference checkpoint."""
+        d = bridge.read_reference_pickle(path)
+        state = d["state"]
+        state.torch_generator = d.get("torch_generator")
+        return state, d["meta"]
+
+    def restore(self, ckpt, seed: int) -> PPOState:
+        """The port's training state of a ``load_checkpoint`` state. The
+        generator continues the checkpoint's stream when the port wrote it on
+        this device type; otherwise (a reference checkpoint, or another
+        device type) a fresh stream starts from ``seed``, and this prints so.
+        Sets the agent's ``seed`` and ``gen``."""
+        state = PPOState(
+            params=self._state_dict(ckpt.params),
+            opt_state=self.opt_state_from_reference(ckpt.opt_state),
+            vstate=bridge.to_port(ckpt.vstate, self.device),
+            obs=torch.as_tensor(np.array(ckpt.obs), device=self.device),
+            obs_norm=bridge.to_port(ckpt.obs_norm, self.device),
+            update_idx=int(np.asarray(ckpt.update_idx)),
+        )
+        gen = self._start(seed)
+        saved = getattr(ckpt, "torch_generator", None)
+        if saved is not None and saved["device_type"] == self.device.type:
+            gen.set_state(torch.from_numpy(np.asarray(saved["state"])))
+        else:
+            origin = ("a reference checkpoint" if saved is None else
+                      f"a checkpoint written on {saved['device_type']}")
+            print(f"Resuming {origin} on {self.device.type}: the random stream "
+                  f"starts fresh from seed {seed}")
+        return state

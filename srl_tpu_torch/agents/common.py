@@ -9,16 +9,19 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from srl_tpu_torch.core.env import VecEnv, VecEnvState
+from srl_tpu_torch.core.env import VecEnv, VecEnvState, state_map
 from srl_tpu_torch.core.normalize import RunningNorm
 from srl_tpu_torch.core.numerics import fma
 
 
 @dataclasses.dataclass
 class RolloutBatch:
-    """[T, N, ...] tensors from one rollout segment."""
+    """[T, N, ...] tensors from one rollout segment. ``obs`` is the
+    (normalized) observations, or, from ``collect_rollout(store_states=True)``,
+    the env-state dataclass with [T, N, ...] fields that each observation
+    renders from."""
 
-    obs: torch.Tensor
+    obs: object
     actions: torch.Tensor
     log_probs: torch.Tensor
     values: torch.Tensor
@@ -37,12 +40,22 @@ def collect_rollout(
     obs_norm: Optional[RunningNorm],
     gen: torch.Generator,
     n_steps: int,
+    store_states: bool = False,
 ) -> Tuple[VecEnvState, torch.Tensor, Optional[RunningNorm], torch.Tensor, RolloutBatch]:
     """``n_steps`` of (policy -> env step -> auto-reset). The normalizer
     statistics update online during collection. ``policy(obs)`` returns
     (distribution, value). Returns (vstate', last_obs, obs_norm',
-    last_norm_obs, batch)."""
-    steps = []
+    last_norm_obs, batch).
+
+    ``store_states=True`` records each step's pre-step ``vstate.env_state``
+    instead of its observation (``env.observe(env_state_t)`` is obs_t), for
+    a caller that re-renders; it needs ``obs_norm`` None, since the online
+    normalizer statistics cannot be replayed."""
+    assert not (store_states and obs_norm is not None), (
+        "store_states re-renders observations in the update; online "
+        "normalization statistics cannot be replayed"
+    )
+    observed, steps = [], []
     for _ in range(n_steps):
         if obs_norm is not None:
             obs_norm = obs_norm.update(obs)
@@ -52,11 +65,14 @@ def collect_rollout(
         dist, value = policy(norm_obs)
         action = dist.sample(gen)
         log_prob = dist.log_prob(action)
+        observed.append(vstate.env_state if store_states else norm_obs)
         vstate, tr = vec_env.step(vstate, action, gen)
-        steps.append((norm_obs, action, log_prob, value, tr.reward, tr.done,
+        steps.append((action, log_prob, value, tr.reward, tr.done,
                       tr.episode_return, tr.episode_length))
         obs = tr.obs
-    batch = RolloutBatch(*(torch.stack(x) for x in zip(*steps)))
+    stack = lambda *xs: torch.stack(xs)
+    batch = RolloutBatch(state_map(stack, *observed) if store_states else stack(*observed),
+                         *(stack(*x) for x in zip(*steps)))
     last_norm_obs = obs_norm.normalize(obs) if obs_norm is not None else obs
     return vstate, obs, obs_norm, last_norm_obs, batch
 

@@ -15,6 +15,20 @@ A mixed-family env (``core/mixed_env.MixedEnv``) trains unchanged: its
 ``VecEnv`` is a ``MixedVecEnv`` whose state is a tuple of per-family
 states.
 
+Beyond one update:
+
+* ``learn(..., updates_per_call=K)`` runs K updates per callback, the
+  episode statistics reaching the host once per K updates, and the metrics
+  averaged over them;
+* ``learn(..., initial_state=...)`` resumes a ``load_checkpoint`` state
+  (either package's), the lr horizon being the completed plus the remaining
+  updates;
+* ``recompute_obs``: the rollout stores each step's env state instead of its
+  observation, and each minibatch re-renders its frames (on the card, the
+  Kuka frames through render3d), bit-identical to the stored frames;
+* ``remat_policy``: the loss recomputes the policy's activations in the
+  backward pass (``torch.utils.checkpoint``).
+
 Parameters are a plain ``{name: tensor}`` dict applied with
 ``torch.func.functional_call``, so ``update_epochs`` is a function of
 (params, Adam state, data, permutations) like the reference's scanned epochs.
@@ -22,21 +36,24 @@ Parameters are a plain ``{name: tensor}`` dict applied with
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
-from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
-from srl_tpu_torch import bridge
-from srl_tpu_torch.agents.base import BaseRLAgent
+from srl_tpu_torch.agents.base import BaseRLAgent, PPOState
 from srl_tpu_torch.agents.common import collect_rollout, compute_gae, explained_variance
+from srl_tpu_torch.bridge import Record
 from srl_tpu_torch.core.device import resolve_device
-from srl_tpu_torch.core.env import VecEnv, VecEnvState
-from srl_tpu_torch.core.normalize import RunningNorm
+from srl_tpu_torch.core.env import state_map
+from srl_tpu_torch.core.frame_stack import FrameStack
 from srl_tpu_torch.core.optim import adam_init, adam_update_
-from srl_tpu_torch.models.policies import ActorCritic, make_policy
+
+EMPTY_STATE = "optax._src.base.EmptyState"
+ADAM_STATE = "optax._src.transform.ScaleByAdamState"
+SCHEDULE_STATE = "optax._src.transform.ScaleByScheduleState"
+
 
 @dataclasses.dataclass
 class PPOConfig:
@@ -54,16 +71,6 @@ class PPOConfig:
     adam_eps: float = 1e-5
 
 
-@dataclasses.dataclass
-class PPOState:
-    params: Dict[str, torch.Tensor]
-    # {"count": optimizer steps taken, "mu": {...}, "nu": {...}}
-    opt_state: dict
-    vstate: Optional[VecEnvState]
-    obs: Optional[torch.Tensor]
-    obs_norm: Optional[RunningNorm]
-
-
 def clip_by_global_norm_(grads: Dict[str, torch.Tensor], max_norm: float):
     """optax.clip_by_global_norm, in place: unchanged below ``max_norm``,
     else scaled to norm ``max_norm`` (as ``g * (max_norm / ||g||)``, within
@@ -75,13 +82,23 @@ def clip_by_global_norm_(grads: Dict[str, torch.Tensor], max_norm: float):
     return grads
 
 
+def _gather(x, idx):
+    """Rows ``idx`` of a tensor or of every field of a state dataclass."""
+    if dataclasses.is_dataclass(x):
+        return state_map(lambda y: y[idx], x)
+    return x[idx]
+
+
 class PPO2(BaseRLAgent):
     name = "ppo2"
     LOG_INTERVAL = 10
+    SAVE_INTERVAL = 1
+    config_class = PPOConfig
 
     def __init__(self, env=None, num_envs: int = 16, policy: str = "auto",
                  config: PPOConfig = None, normalize_obs: Optional[bool] = None,
-                 env_align: Optional[int] = None, device="cuda"):
+                 env_align: Optional[int] = None, recompute_obs: bool = False,
+                 remat_policy: bool = False, device="cuda"):
         super().__init__()
         self.device = resolve_device(device)
         self.env = env
@@ -91,47 +108,31 @@ class PPO2(BaseRLAgent):
         # Mixed-family envs: the family-slice alignment (None: one device,
         # core/mixed_env.default_align).
         self.env_align = env_align
+        self.recompute_obs = recompute_obs
+        self.remat_policy = remat_policy
         self.n_updates = 1  # lr-anneal horizon, set by learn()
         if env is not None:
-            self._setup(normalize_obs)
+            # Coarse-obs envs hand the traced half-resolution image to the
+            # CNN, the 2x upsample folded into conv1.
+            self._setup(normalize_obs, getattr(env, "obs_coarse_scale", 1), env_align)
+            if recompute_obs:
+                self._check_recompute_obs()
 
-    def _setup(self, normalize_obs):
-        env = self.env
-        if getattr(env, "is_mixed_family", False):
-            self.vec_env = VecEnv(env, self.num_envs, align=self.env_align)
-        else:
-            self.vec_env = VecEnv(env, self.num_envs)
-        self.obs_shape = tuple(env.observation_space.shape)
-        self.input_scale = getattr(env, "obs_coarse_scale", 1)
-        self.policy: ActorCritic = self._make_policy().to(self.device)
-        # VecNormalize only for non-pixel observations.
-        if normalize_obs is None:
-            normalize_obs = env.srl_model != "raw_pixels"
-        self.normalize_obs = normalize_obs
-
-    def _make_policy(self) -> ActorCritic:
-        return make_policy(self.env.action_space, self.obs_shape,
-                           self.policy_kind, input_scale=self.input_scale)
-
-    def apply(self, params: Dict[str, torch.Tensor], obs: torch.Tensor):
-        """(distribution, value) of the policy with ``params``."""
-        return functional_call(self.policy, params, (obs,))
+    def _check_recompute_obs(self):
+        assert not self.normalize_obs, (
+            "recompute_obs re-renders observations in the update; online "
+            "normalizer statistics cannot be replayed - use it for raw_pixels "
+            "(unnormalized) training")
+        assert not getattr(self.env, "is_mixed_family", False), (
+            "recompute_obs is not wired for mixed-family batches yet")
+        assert not isinstance(self.env, FrameStack), (
+            "recompute_obs with FrameStack would store the stacked frame buffer "
+            "per step (num_stack x the slab it removes) - drop --recompute-obs "
+            "or --num-stack")
 
     # ------------------------------------------------------------------
-    def init_params(self, seed: int) -> Dict[str, torch.Tensor]:
-        """Fresh orthogonal-init parameters drawn from ``seed``."""
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
-            fresh = self._make_policy()
-        return {k: v.detach().to(self.device) for k, v in fresh.state_dict().items()}
-
-    def init_state(self, gen: torch.Generator, seed: int = 0) -> PPOState:
-        vstate, obs = self.vec_env.reset(gen)
-        params = self.init_params(seed)
-        obs_norm = (RunningNorm.create(self.obs_shape, self.device)
-                    if self.normalize_obs else None)
-        return PPOState(params=params, opt_state=adam_init(params), vstate=vstate,
-                        obs=obs, obs_norm=obs_norm)
+    def opt_init(self, params):
+        return adam_init(params)
 
     def learning_rate(self, count: int) -> float:
         """The reference's linear anneal at optimizer step ``count``."""
@@ -151,10 +152,35 @@ class PPO2(BaseRLAgent):
         adam_update_(params, grads, opt_state, self.learning_rate(opt_state["count"]),
                      cfg.adam_eps)
 
+    def opt_state_to_reference(self, opt_state):
+        count = np.asarray(opt_state["count"], np.int32)
+        adam = Record(ADAM_STATE, args=(count, self._flax(opt_state["mu"]),
+                                        self._flax(opt_state["nu"])))
+        lr = (Record(SCHEDULE_STATE, args=(count,)) if self.config.lr_linear_decay
+              else Record(EMPTY_STATE, args=()))
+        return (Record(EMPTY_STATE, args=()), (adam, lr))
+
+    def opt_state_from_reference(self, ref):
+        _, (adam, lr) = ref
+        count = int(np.asarray(adam.count))
+        if lr.ref_name == SCHEDULE_STATE and int(np.asarray(lr.count)) != count:
+            raise ValueError(f"Adam count {count} and schedule count "
+                             f"{int(np.asarray(lr.count))} disagree")
+        return {"count": count, "mu": self._state_dict(adam.mu),
+                "nu": self._state_dict(adam.nu)}
+
     # ------------------------------------------------------------------
     def _loss(self, params, minibatch, cliprange):
         obs, actions, old_logp, old_values, advantages, returns = minibatch
-        dist, vpred = self.apply(params, obs)
+        if self.recompute_obs:
+            # ``obs`` is the gathered env states: render this minibatch's
+            # frames (no gradient flows into a render).
+            with torch.no_grad():
+                obs = self.vec_env.env.observe(obs)
+        if self.remat_policy:
+            dist, vpred = checkpoint(self.apply, params, obs, use_reentrant=False)
+        else:
+            dist, vpred = self.apply(params, obs)
         logp = dist.log_prob(actions)
         entropy = torch.mean(dist.entropy())
 
@@ -183,9 +209,10 @@ class PPO2(BaseRLAgent):
 
     def update_epochs(self, params, opt_state, data, perms):
         """The shuffled minibatch epochs: ``perms`` [noptepochs, T * N] holds
-        one permutation of the flat batch per epoch. Returns (params',
-        opt_state', metrics averaged over every minibatch); the inputs are
-        left as they are."""
+        one permutation of the flat batch per epoch; ``data[0]`` is the
+        observations or, with ``recompute_obs``, the env states. Returns
+        (params', opt_state', metrics averaged over every minibatch); the
+        inputs are left as they are."""
         cfg = self.config
         mb_size = perms.shape[1] // cfg.nminibatches
         names = list(params)
@@ -197,7 +224,7 @@ class PPO2(BaseRLAgent):
         for perm in perms:
             for i in range(cfg.nminibatches):
                 idx = perm[i * mb_size:(i + 1) * mb_size]
-                mb = tuple(x[idx] for x in data)
+                mb = tuple(_gather(x, idx) for x in data)
                 leaves = {k: params[k].detach().requires_grad_(True) for k in names}
                 loss, aux = self._loss(leaves, mb, cfg.cliprange)
                 grads = torch.autograd.grad(loss, [leaves[k] for k in names])
@@ -213,13 +240,14 @@ class PPO2(BaseRLAgent):
         policy = lambda obs: self.apply(state.params, obs)
         vstate, obs, obs_norm, last_norm_obs, batch = collect_rollout(
             self.vec_env, policy, state.vstate, state.obs, state.obs_norm, gen,
-            cfg.n_steps)
+            cfg.n_steps, store_states=self.recompute_obs)
         with torch.no_grad():
             _, last_value = policy(last_norm_obs)
         advantages, returns = compute_gae(batch.rewards, batch.values, batch.dones,
                                           last_value, cfg.gamma, cfg.lam)
-        flat = lambda x: x.reshape((-1,) + x.shape[2:])
-        data = (flat(batch.obs), flat(batch.actions), flat(batch.log_probs),
+        flat = lambda x: x.reshape((x.shape[0] * x.shape[1],) + x.shape[2:])
+        obs_data = (state_map(flat, batch.obs) if self.recompute_obs else flat(batch.obs))
+        data = (obs_data, flat(batch.actions), flat(batch.log_probs),
                 flat(batch.values), flat(advantages), flat(returns))
         batch_size = data[1].shape[0]
         perms = torch.stack([
@@ -232,94 +260,39 @@ class PPO2(BaseRLAgent):
         metrics["episode_length"] = batch.episode_length
         metrics["mean_reward_per_step"] = batch.rewards.mean()
         new_state = PPOState(params=params, opt_state=opt_state, vstate=vstate,
-                             obs=obs, obs_norm=obs_norm)
+                             obs=obs, obs_norm=obs_norm, update_idx=state.update_idx + 1)
         return new_state, metrics
 
     # ------------------------------------------------------------------
     def learn(self, total_timesteps: int, seed: int = 0,
-              callback: Optional[Callable] = None) -> PPOState:
+              callback: Optional[Callable] = None, log_interval: Optional[int] = None,
+              updates_per_call: int = 1, initial_state=None) -> PPOState:
         """Run ``total_timesteps // (n_steps * num_envs)`` updates (at least
-        one), calling ``callback(locals, globals)`` after each."""
+        one), ``updates_per_call`` per call of ``callback(locals, globals)``.
+        ``initial_state`` (from ``load_checkpoint``) resumes a run: the lr
+        anneal continues on the run's slope, its horizon the completed plus
+        the remaining updates."""
         cfg = self.config
-        steps_per_update = cfg.n_steps * self.num_envs
-        self.n_updates = n_updates = max(1, total_timesteps // steps_per_update)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        state = self.init_state(gen, seed)
-        episode_returns, episode_lengths = [], []
-        t_start = time.time()
-        num_timesteps = 0
-        for update in range(n_updates):
-            state, metrics = self.train_iteration(state, gen)
-            self.state = state
-            num_timesteps += steps_per_update
-            ep_ret = metrics.pop("episode_return").cpu().numpy()
-            ep_len = metrics.pop("episode_length").cpu().numpy()
-            finished = ~np.isnan(ep_ret)
-            episode_returns.extend(ep_ret[finished].tolist())
-            episode_lengths.extend(ep_len[finished].tolist())
-            if callback is not None:
-                callback({
-                    "self": self,
-                    "state": state,
-                    "update": update,
-                    "n_updates": n_updates,
-                    "num_timesteps": num_timesteps,
-                    "episode_returns": episode_returns,
-                    "episode_lengths": episode_lengths,
-                    "metrics": {k: float(v) for k, v in metrics.items()},
-                    "fps": num_timesteps / max(time.time() - t_start, 1e-9),
-                }, {})
-        self.state = state
-        return state
+        n_updates = max(1, total_timesteps // (cfg.n_steps * self.num_envs))
+        if initial_state is not None:
+            state = self.restore(initial_state, seed)
+            self.n_updates = state.update_idx + n_updates
+        else:
+            self.n_updates = n_updates
+            state = self.init_state(self._start(seed), seed)
+        return self._run(state, n_updates, callback, updates_per_call)
 
-    # ------------------------------------------------------------------
-    def getAction(self, observation, deterministic: bool = False,
-                  gen: Optional[torch.Generator] = None):
-        obs = torch.as_tensor(np.asarray(observation), device=self.device)
-        if self.state.obs_norm is not None:
-            obs = self.state.obs_norm.normalize(obs)
-        with torch.no_grad():
-            dist, _ = self.apply(self.state.params, obs)
-            if deterministic:
-                return dist.mode().cpu().numpy()
-            if gen is None:
-                if getattr(self, "_act_gen", None) is None:
-                    self._act_gen = torch.Generator(device=self.device)
-                    self._act_gen.manual_seed(0)
-                gen = self._act_gen
-            return dist.sample(gen).cpu().numpy()
-
-    # ---- persistence (the reference's payload format) --------------------
-    def save(self, save_path: str, _locals=None):
-        norm = self.state.obs_norm
-        payload = {
-            "name": self.name,
-            "config": dataclasses.asdict(self.config),
-            "num_envs": self.num_envs,
-            "policy_kind": self.policy_kind,
-            "normalize_obs": self.normalize_obs,
-            "params": bridge.state_dict_to_flax(self.state.params,
-                                                self.policy.torso_kind),
-            "obs_norm": (self._to_numpy({"mean": norm.mean, "var": norm.var,
-                                         "count": norm.count})
-                         if norm is not None else None),
-        }
-        self._save_pickle(save_path, payload)
-
+    # ---- the reference's surface -------------------------------------------
     @classmethod
-    def load(cls, load_path: str, env=None, device="cuda") -> "PPO2":
-        d = bridge.load_jax_checkpoint(load_path)
-        agent = cls(env=env, num_envs=d["num_envs"], policy=d["policy_kind"],
-                    config=PPOConfig(**d["config"]),
-                    normalize_obs=d["normalize_obs"], device=device)
-        dev = agent.device
-        obs_norm = None
-        if d["obs_norm"] is not None:
-            obs_norm = RunningNorm(
-                **{k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
-                   for k, v in d["obs_norm"].items()})
-        params = {k: v.to(dev) for k, v in d["state_dict"].items()}
-        agent.state = PPOState(params=params, opt_state=None, vstate=None, obs=None,
-                               obs_norm=obs_norm)
-        return agent
+    def getOptParam(cls):
+        return {
+            "lam": (float, (0, 1)),
+            "gamma": (float, (0, 1)),
+            "max_grad_norm": (float, (0, 1)),
+            "vf_coef": (float, (0, 1)),
+            "learning_rate": (float, (1e-2, 1e-5)),
+            "ent_coef": (float, (0, 1)),
+            "cliprange": (float, (0, 1)),
+            "noptepochs": (int, (1, 10)),
+            "n_steps": (int, (32, 2048)),
+        }

@@ -15,6 +15,12 @@
   ``omnirobot_state_from_numpy`` and ``car_racing_state_from_numpy`` for
   those envs), and ``mixed_state_from_numpy`` a mixed-family batch's tuple
   of per-family ``VecEnvState``s.
+* ``read_reference_pickle`` / ``write_reference_pickle`` read and write the
+  reference's full training-state checkpoints (``checkpoint.pkl``: a
+  ``PPOState`` of params, optax state, ``VecEnvState``, observations,
+  ``RunningNorm``, key and update counter) by class name, importing neither
+  ``srl_tpu`` nor optax: the reference's classes become ``Record``s, and
+  ``to_port`` / ``to_reference`` convert their state dataclasses both ways.
 
 This module imports neither package's framework beyond torch and numpy; the
 tests hand it the reference's arrays.
@@ -22,6 +28,9 @@ tests hand it the reference's arrays.
 from __future__ import annotations
 
 import dataclasses
+import importlib
+import io
+import os
 import pickle
 from typing import Dict
 
@@ -210,3 +219,196 @@ def mixed_state_from_numpy(vstates, converters, device="cpu") -> tuple:
                     ep_return=torch.as_tensor(np.array(v["ep_return"]), device=device),
                     ep_length=torch.as_tensor(np.array(v["ep_length"]), device=device))
         for v, convert in zip(vstates, converters))
+
+
+# ---------------------------------------------------------------------------
+# The reference's training-state pickles, by class name.
+# ---------------------------------------------------------------------------
+# optax's NamedTuple states: their fields, in order (pickled as the
+# constructor's arguments).
+OPTAX_STATES = {
+    "optax._src.base.EmptyState": (),
+    "optax._src.transform.ScaleByAdamState": ("count", "mu", "nu"),
+    "optax._src.transform.ScaleByScheduleState": ("count",),
+    "optax._src.transform.ScaleByRmsState": ("nu",),
+}
+# The reference's dataclasses a checkpoint holds besides its env states
+# (``srl_tpu.envs.<module>.<Name>State``).
+REFERENCE_DATACLASSES = (
+    "srl_tpu.agents.ppo.PPOState",
+    "srl_tpu.core.env.VecEnvState",
+    "srl_tpu.core.normalize.RunningNorm",
+    "srl_tpu.core.frame_stack.FrameStackState",
+)
+
+
+class Record:
+    """An object of one of the reference's classes, by name: ``ref_name`` is
+    the class's dotted path; a dataclass keeps its fields in ``fields``, an
+    optax state its constructor arguments in ``args`` (``fields`` names
+    them)."""
+
+    def __init__(self, ref_name: str, fields: dict = None, args: tuple = None):
+        self.ref_name = ref_name
+        self.args = args
+        if args is not None:
+            fields = dict(zip(OPTAX_STATES[ref_name], args))
+        self.fields = dict(fields or {})
+
+    def __setstate__(self, state):  # the unpickler's BUILD of a dataclass
+        self.fields.update(state)
+
+    def __getattr__(self, name):
+        fields = self.__dict__.get("fields", {})
+        if name in fields:
+            return fields[name]
+        raise AttributeError(name)
+
+    def __repr__(self):
+        return f"Record({self.ref_name}, {sorted(self.fields)})"
+
+
+def _is_reference_dataclass(name: str) -> bool:
+    if name in REFERENCE_DATACLASSES:
+        return True
+    parts = name.split(".")
+    return (len(parts) == 4 and parts[:2] == ["srl_tpu", "envs"]
+            and parts[3].endswith("State"))
+
+
+def _stand_in(name: str):
+    """A class that the unpickler builds a ``Record`` of ``name`` with."""
+    if name in OPTAX_STATES:
+        def build(*args):
+            return Record(name, args=tuple(args))
+    else:
+        def build():
+            return Record(name)
+
+    class StandIn:
+        def __new__(cls, *args):
+            return build(*args)
+
+    return StandIn
+
+
+class _ReferenceUnpickler(pickle.Unpickler):
+    """Unpickles numpy and, as ``Record``s, the reference's checkpoint
+    classes; any other global is refused."""
+
+    def find_class(self, module, name):
+        full = f"{module}.{name}"
+        if module == "numpy" or module.startswith("numpy."):
+            return super().find_class(module, name)
+        if full in OPTAX_STATES or _is_reference_dataclass(full):
+            return _stand_in(full)
+        raise pickle.UnpicklingError(f"{full} is not a class of a training checkpoint")
+
+
+def read_reference_pickle(path: str):
+    """A pickle written by the reference's ``save_checkpoint`` (or the
+    port's), its reference objects as ``Record``s. Reads only numpy and the
+    classes of a checkpoint; still, only load files this program or the
+    reference wrote."""
+    with open(path, "rb") as f:
+        return _ReferenceUnpickler(f).load()
+
+
+class _ReferencePickler(pickle._Pickler):
+    """The pure-Python pickler, writing each ``Record`` as the reference's
+    pickle writes its object (NEWOBJ of the class by name, then BUILD of a
+    dataclass's fields), without importing the class."""
+
+    dispatch = pickle._Pickler.dispatch.copy()
+
+    def save_record(self, obj: Record):
+        module, name = obj.ref_name.rsplit(".", 1)
+        self.save(module)
+        self.save(name)
+        self.write(pickle.STACK_GLOBAL)
+        self.save(tuple(obj.args) if obj.args is not None else ())
+        self.write(pickle.NEWOBJ)
+        self.memoize(obj)
+        if obj.args is None:
+            self.save(obj.fields)
+            self.write(pickle.BUILD)
+
+    dispatch[Record] = save_record
+
+
+def write_reference_pickle(obj, path: str) -> None:
+    """Write ``obj`` (``Record``s, dicts, tuples, numpy) atomically: to a
+    temporary file, then renamed over ``path``."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    buf = io.BytesIO()
+    _ReferencePickler(buf, protocol=4).dump(obj)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(buf.getbuffer())
+    os.replace(tmp, path)
+
+
+# Fields the port keeps and the reference does not: (class name -> fields).
+_PORT_ONLY_FIELDS = {"OmniRobotState": ("render_noise",)}
+
+
+def _port_class(ref_name: str):
+    """The port's counterpart of a reference dataclass: the same class name
+    in the same module under ``srl_tpu_torch``."""
+    module, name = ref_name.rsplit(".", 1)
+    return getattr(importlib.import_module("srl_tpu_torch" + module[len("srl_tpu"):]), name)
+
+
+def to_port(obj, device="cpu"):
+    """Reference state (``Record``s of dataclasses, tuples, numpy) -> the
+    port's dataclasses of tensors on ``device``. The reference's PRNG keys
+    have no counterpart and are dropped; a field only the port keeps
+    (Omnirobot's render noise) starts at zero."""
+    if isinstance(obj, Record):
+        cls = _port_class(obj.ref_name)
+        fields = {}
+        for f in dataclasses.fields(cls):
+            if f.name in obj.fields:
+                fields[f.name] = to_port(obj.fields[f.name], device)
+        for name in _PORT_ONLY_FIELDS.get(cls.__name__, ()):
+            n = len(next(iter(fields.values())))
+            fields[name] = torch.zeros((n, 3), dtype=torch.float32, device=device)
+        return cls(**fields)
+    if isinstance(obj, tuple):
+        return tuple(to_port(x, device) for x in obj)
+    if obj is None:
+        return None
+    return torch.as_tensor(np.array(obj), device=device)
+
+
+def fresh_keys(seed: int, n: int, offset: int = 0) -> np.ndarray:
+    """``n`` raw threefry keys [n, 2] uint32, ``[offset + i, seed]``: a
+    fresh, distinct random stream per key, drawn from the run's seed."""
+    keys = np.zeros((n, 2), np.uint32)
+    keys[:, 0] = offset + np.arange(n)
+    keys[:, 1] = np.uint32(seed & 0xFFFFFFFF)
+    return keys
+
+
+def to_reference(obj, seed: int = 0):
+    """The port's state dataclasses of tensors -> ``Record``s of numpy that
+    the reference unpickles as its own classes. Every key the reference's
+    states carry (the vector env's, each env's) is made fresh from
+    ``seed``."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        cls = type(obj)
+        ref_name = "srl_tpu" + cls.__module__[len("srl_tpu_torch"):] + "." + cls.__name__
+        skip = _PORT_ONLY_FIELDS.get(cls.__name__, ())
+        fields = {f.name: to_reference(getattr(obj, f.name), seed)
+                  for f in dataclasses.fields(obj) if f.name not in skip}
+        if ref_name == "srl_tpu.core.env.VecEnvState":
+            fields["key"] = fresh_keys(seed, 1, offset=1)[0]
+        elif ref_name.startswith("srl_tpu.envs."):
+            n = len(next(iter(fields.values())))
+            fields = {"key": fresh_keys(seed, n, offset=2), **fields}
+        return Record(ref_name, fields)
+    if isinstance(obj, tuple):
+        return tuple(to_reference(x, seed) for x in obj)
+    if obj is None:
+        return None
+    return obj.detach().cpu().numpy()

@@ -43,19 +43,28 @@ class VecEnvState:
     ep_length: torch.Tensor  # [N] int32
 
 
+def state_map(fn, *states):
+    """``fn`` applied field by field across batched state dataclasses of one
+    type, recursing into fields that are state dataclasses themselves (a
+    wrapper's inner state): ``state_map(lambda x: x[idx], s)`` gathers rows,
+    ``state_map(lambda *xs: torch.stack(xs), *steps)`` stacks steps."""
+    first = states[0]
+    out = {}
+    for f in dataclasses.fields(first):
+        xs = [getattr(s, f.name) for s in states]
+        if dataclasses.is_dataclass(xs[0]):
+            out[f.name] = state_map(fn, *xs)
+        else:
+            out[f.name] = fn(*xs)
+    return type(first)(**out)
+
+
 def state_where(mask: torch.Tensor, a, b):
     """Field by field ``where(mask, a, b)`` over two batched state
-    dataclasses, recursing into fields that are state dataclasses themselves
-    (a wrapper's inner state); ``mask`` is [N] bool."""
-    out = {}
-    for f in dataclasses.fields(a):
-        x, y = getattr(a, f.name), getattr(b, f.name)
-        if dataclasses.is_dataclass(x):
-            out[f.name] = state_where(mask, x, y)
-            continue
-        m = mask.reshape(mask.shape + (1,) * (x.dim() - 1))
-        out[f.name] = torch.where(m, x, y)
-    return type(a)(**out)
+    dataclasses; ``mask`` is [N] bool."""
+    return state_map(
+        lambda x, y: torch.where(mask.reshape(mask.shape + (1,) * (x.dim() - 1)), x, y),
+        a, b)
 
 
 class BatchedEnv(abc.ABC):

@@ -3,11 +3,17 @@ srl_tpu/core/normalize.py).
 
 A parallel (Chan et al.) running mean and variance over observation batches,
 variance with ddof 0, applied as ``clip((x - mean) / sqrt(var + eps), +-10)``.
+``save``/``load`` write and read the reference's ``obs_rms.pkl``
+(``{"mean", "var": float32 numpy, "count": float}``), so either package
+reads the other's file.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import pickle
 
+import numpy as np
 import torch
 
 CLIP_OBS = 10.0
@@ -44,3 +50,21 @@ class RunningNorm:
     def normalize(self, x: torch.Tensor, clip: float = CLIP_OBS) -> torch.Tensor:
         out = (x - self.mean) / torch.sqrt(self.var + EPS)
         return torch.clamp(out, -clip, clip)
+
+    def save(self, path: str, name: str = "obs_rms"):
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, f"{name}.pkl"), "wb") as f:
+            pickle.dump({"mean": self.mean.detach().cpu().numpy(),
+                         "var": self.var.detach().cpu().numpy(),
+                         "count": float(self.count)}, f)
+
+    @classmethod
+    def load(cls, path: str, name: str = "obs_rms", device="cpu") -> "RunningNorm":
+        """Only load files this program or the reference wrote: unpickling
+        runs code."""
+        with open(os.path.join(path, f"{name}.pkl"), "rb") as f:
+            d = pickle.load(f)
+        f32 = dict(dtype=torch.float32, device=device)
+        return cls(mean=torch.as_tensor(np.asarray(d["mean"]), **f32),
+                   var=torch.as_tensor(np.asarray(d["var"]), **f32),
+                   count=torch.tensor(d["count"], **f32))

@@ -1,25 +1,37 @@
 """Training entry point (counterpart of srl_tpu/experiments/train.py).
 
-The port's subset of the reference CLI: ``--algo ppo2`` on every registered
-env (Kuka, MobileRobot, Omnirobot, CarRacing) with every ``--srl-model`` of
-the registry, optionally with ``--num-stack`` frames, or on a mixed batch of
-env families (``--mixed-envs``: one learner over contiguous per-family
-slices, ``core/mixed_env.py``; differing action counts fold modulo each
-family's, with a warning). Every env gets the options it takes (found by
-signature, as the reference does). A learned model (type SRL) is
-resolved as the reference resolves it: ``--latest`` takes the newest
+The reference CLI for the agents ported so far (``--algo ppo2|ppo1|a2c|trpo``,
+from ``agents/registry``) on every registered env (Kuka, MobileRobot,
+Omnirobot, CarRacing) with every ``--srl-model`` of the registry, optionally
+with ``--num-stack`` frames, or on a mixed batch of env families
+(``--mixed-envs``: one learner over contiguous per-family slices,
+``core/mixed_env.py``; differing action counts fold modulo each family's,
+with a warning). Every env gets the options it takes (found by signature, as
+the reference does). A learned model (type SRL) is resolved as the
+reference resolves it: ``--latest`` takes the newest
 ``srl_logs/{env}/**/srl_model.pkl``, else ``--srl-config-file`` names its
 checkpoint under the env's ``log_folder``; the env (each family of a mixed
 batch) is then wrapped in ``SRLEncodedEnv`` (render -> encode) before any
-frame stacking. The run directory has the reference's layout,
-``{log-dir}/{env}/{srl_model}/{algo}/{datetime}/`` with ``args.json``,
-``env_globals.json``, ``0.monitor.csv``, ``metrics.jsonl``,
-``ppo2_model.pkl`` (best mean reward over the last 100 episodes, once 100
-have finished) and ``ppo2_final_model.pkl``; the reference's
-``srl_tpu.agents.ppo.PPO2.load`` reads both checkpoints.
+frame stacking.
 
-Usage (the README's pixel run, the quickstart, and an encoder trained by
-``srl_tpu_torch.experiments.train_srl``):
+The algo's config is its defaults, then the CLI flags that name a config
+field (A2C's ``--lr-schedule``), then ``--hyperparam name:value``. The run
+directory has the reference's layout, ``{log-dir}/{env}/{srl_model}/{algo}/
+{datetime}/`` with ``args.json``, ``env_globals.json``, ``0.monitor.csv``,
+``metrics.jsonl`` (a line per callback, the losses included),
+``{algo}_model.pkl`` (best mean reward over the last 100 episodes, once
+``--min-episodes-save`` have finished) and ``{algo}_final_model.pkl``, which
+the reference's agents load. ``--checkpoint-interval N`` writes the whole
+training state every N updates (``checkpoint.pkl``, readable by either
+package), and ``--resume LOG_DIR`` continues that run in place (PPO2 and
+PPO1, as in the reference). ``--load-rl-model-path`` trains on from a saved
+policy's parameters and normalizer, with a fresh optimizer and env (the
+reference's run discards the loaded weights: ROADMAP Queue C). Not ported
+yet, and refused with a message: the recurrent ``--policy`` kinds and the
+other algos. ``--port`` and ``--no-vis`` are accepted and draw nothing.
+
+Usage (the README's pixel run, the quickstart, an encoder trained by
+``srl_tpu_torch.experiments.train_srl``, a resume):
   python -m srl_tpu_torch.experiments.train --env KukaButtonGymEnv-v0 \\
       --srl-model raw_pixels --algo ppo2 --num-envs 256 --render-scale 2 \\
       --coarse-obs
@@ -30,10 +42,12 @@ Usage (the README's pixel run, the quickstart, and an encoder trained by
   python -m srl_tpu_torch.experiments.train --env KukaButtonGymEnv-v0 \\
       --mixed-envs KukaButtonGymEnv-v0 OmnirobotEnv-v0 --srl-model raw_pixels \\
       --render-scale 2 --num-envs 256
+  python -m srl_tpu_torch.experiments.train --resume LOG_DIR
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import glob
 import inspect
 import json
@@ -44,7 +58,9 @@ from datetime import datetime
 import numpy as np
 import torch
 
-from srl_tpu_torch.agents.ppo import PPO2
+from srl_tpu_torch.agents import ActionType
+from srl_tpu_torch.agents.base import BaseRLAgent
+from srl_tpu_torch.agents.registry import registered_rl, resolve_policy_class
 from srl_tpu_torch.core.device import resolve_device
 from srl_tpu_torch.core.frame_stack import FrameStack
 from srl_tpu_torch.core.mixed_env import MixedEnv
@@ -56,31 +72,35 @@ from srl_tpu_torch.utils.logging import printGreen, printYellow
 from srl_tpu_torch.utils.monitor import MonitorWriter
 from srl_tpu_torch.utils.srl_models_yaml import read_srl_models
 
-MIN_EPISODES_BEFORE_SAVE = 100
 N_EPISODES_EVAL = 100
+DEFAULT_NUM_ENVS = 16
+# The reference's --algo and --policy choices.
+REFERENCE_ALGOS = ["a2c", "acer", "acktr", "ars", "cma-es", "ddpg", "deepq", "ppo1",
+                   "ppo2", "random_agent", "sac", "trpo"]
+POLICIES = ["auto", "mlp", "cnn", "lstm", "lnlstm", "cnnlstm", "cnnlnlstm"]
+# args.json entries a resume keeps from its own command line (the device
+# too: a run may resume on another device type).
+RESUME_KEEPS = ("resume", "checkpoint_interval", "device")
 
-# Reference flags this port does not have yet (see ROADMAP.md).
-NOT_PORTED = ("--recompute-obs", "--remat-policy", "--updates-per-call", "--resume",
-              "--load-rl-model-path", "--hyperparam")
 
-
-def parse_args(argv=None):
+def build_parser(argv=None) -> argparse.ArgumentParser:
+    """The CLI's parser for ``argv``: a first pass finds ``--algo``, whose
+    agent then adds its own flags (``customArguments``)."""
     parser = argparse.ArgumentParser(
-        description="Train PPO2 on the registered envs (PyTorch port)")
-    parser.add_argument("--algo", default="ppo2", choices=["ppo2"])
+        description="Train RL algorithms on the registered envs (PyTorch port)")
+    parser.add_argument("--algo", default="ppo2", choices=REFERENCE_ALGOS)
     parser.add_argument("--env", default="KukaButtonGymEnv-v0",
                         choices=list(registered_env.keys()))
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--episode_window", "--episode-window", dest="episode_window",
+                        type=int, default=40,
+                        help="episodes in the mean reward of metrics.jsonl")
+    parser.add_argument("--port", type=int, default=8097,
+                        help="accepted for compatibility: the port draws no plots")
+    parser.add_argument("--log-dir", default="logs/")
+    parser.add_argument("--num-timesteps", type=int, default=int(1e6))
     parser.add_argument("--srl-model", default="raw_pixels",
                         choices=list(registered_srl.keys()))
-    parser.add_argument("--srl-config-file", default="config/srl_models.yaml",
-                        help="env -> {log_folder, model: checkpoint} map of the "
-                        "trained SRL models")
-    parser.add_argument("--latest", action="store_true",
-                        help="use the newest trained SRL model of the env under "
-                        "srl_logs/")
-    parser.add_argument("--num-envs", type=int, default=16)
-    parser.add_argument("--num-timesteps", type=int, default=int(1e6))
-    parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--num-stack", type=int, default=1,
                         help="number of frames to stack")
     parser.add_argument("--render-scale", type=int, default=1, choices=[1, 2, 4, 7],
@@ -88,28 +108,66 @@ def parse_args(argv=None):
     parser.add_argument("--coarse-obs", action="store_true",
                         help="with --render-scale 2: hand the traced 112x112 "
                         "image to the CNN, the upsample folded into conv1")
-    parser.add_argument("-c", "--continuous-actions", action="store_true")
-    parser.add_argument("-r", "--random-target", action="store_true")
+    parser.add_argument("--action-repeat", type=int, default=1)
+    parser.add_argument("--srl-config-file", default="config/srl_models.yaml",
+                        help="env -> {log_folder, model: checkpoint} map of the "
+                        "trained SRL models")
+    parser.add_argument("--hyperparam", type=str, nargs="+", default=[],
+                        help="'name:value' overrides of the algo's config "
+                        "(its getOptParam names)")
+    parser.add_argument("--min-episodes-save", type=int, default=100,
+                        help="finished episodes before the best model is saved")
+    parser.add_argument("--latest", action="store_true",
+                        help="use the newest trained SRL model of the env under "
+                        "srl_logs/")
+    parser.add_argument("--load-rl-model-path", type=str, default=None,
+                        help="start from this saved policy's parameters and "
+                        "normalizer (fresh optimizer and env)")
+    parser.add_argument("--checkpoint-interval", type=int, default=0,
+                        help="write the whole training state to checkpoint.pkl "
+                        "every N updates (0 = off); enables --resume")
+    parser.add_argument("--resume", type=str, default=None, metavar="LOG_DIR",
+                        help="continue the run of LOG_DIR in place from its "
+                        "args.json and checkpoint.pkl")
+    parser.add_argument("--profile", action="store_true",
+                        help="write a torch.profiler trace of the training into "
+                        "LOG_DIR/profile/")
+    parser.add_argument("--updates-per-call", type=int, default=1,
+                        help="PPO updates per callback (the episode statistics "
+                        "reach the host once per call)")
+    parser.add_argument("--recompute-obs", action="store_true",
+                        help="pixel PPO: store env states in the rollout and "
+                        "re-render each minibatch's frames in the update instead "
+                        "of keeping the [T*N, H, W, 3] slab (bit-identical updates)")
+    parser.add_argument("--policy", default="auto", choices=POLICIES,
+                        help="network architecture")
     parser.add_argument("--shape-reward", action="store_true")
-    parser.add_argument("--log-dir", default="logs/")
-    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    parser.add_argument("-c", "--continuous-actions", action="store_true")
+    parser.add_argument("-joints", "--action-joints", action="store_true")
+    parser.add_argument("-r", "--random-target", action="store_true")
+    parser.add_argument("--no-vis", action="store_true",
+                        help="accepted for compatibility: the port draws no plots")
     parser.add_argument("--mixed-envs", nargs="+", default=None, metavar="ENV_ID",
                         choices=list(registered_env.keys()),
                         help="train one learner on a batch of these env families, "
                         "which must share the observation space (raw_pixels at a "
                         "common shape or equal-dim SRL states); --env still names "
                         "the run directory and the SRL config entry")
-    parser.add_argument("--no-vis", action="store_true",
-                        help="accepted for compatibility: the port draws no plots")
-    for flag in NOT_PORTED:
-        parser.add_argument(flag, nargs="*", help=argparse.SUPPRESS,
-                            dest="not_ported_" + flag[2:].replace("-", "_"))
-    args = parser.parse_args(argv)
-    for flag in NOT_PORTED:
-        if getattr(args, "not_ported_" + flag[2:].replace("-", "_")) is not None:
-            parser.error(f"{flag} is not ported to srl_tpu_torch yet; use "
-                         "srl_tpu.experiments.train for it")
-    return args
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+
+    args, _ = parser.parse_known_args(argv)
+    if args.algo not in registered_rl:
+        parser.error(f"--algo {args.algo} is not ported to srl_tpu_torch yet; use "
+                     "srl_tpu.experiments.train for it")
+    if "lstm" in args.policy:
+        parser.error(f"--policy {args.policy} is not ported to srl_tpu_torch yet "
+                     "(the recurrent agents); use srl_tpu.experiments.train for it")
+    registered_rl[args.algo][0](device="cpu").customArguments(parser)
+    return parser
+
+
+def parse_args(argv=None):
+    return build_parser(argv).parse_args(argv)
 
 
 def accepted_kwargs(env_cls, kwargs: dict) -> dict:
@@ -165,6 +223,8 @@ def build_env(args, device="cuda"):
     options = {
         "srl_model": args.srl_model,
         "is_discrete": not args.continuous_actions,
+        "action_joints": args.action_joints,
+        "action_repeat": args.action_repeat,
         "random_target": args.random_target,
         "shape_reward": args.shape_reward,
         "render_scale": args.render_scale,
@@ -218,10 +278,17 @@ def save_env_params(log_dir: str, env) -> None:
         json.dump(params, f, indent=2, default=str)
 
 
-def make_callback(log_dir: str, args, monitor: MonitorWriter, algo):
-    """Monitor CSV rows, best-model saving and one metrics.jsonl line per
-    update (the losses included)."""
-    state = {"best": -1e4, "n_logged": 0}
+def make_callback(log_dir: str, args, monitor: MonitorWriter, algo,
+                  resume_meta: dict = None):
+    """Monitor CSV rows, best-model saving every ``SAVE_INTERVAL`` updates,
+    a checkpoint every ``--checkpoint-interval`` updates and a metrics.jsonl
+    line per call, the losses included; a resumed run counts on from its
+    checkpoint's steps and episodes."""
+    state = {"best": -1e4, "n_logged": 0, "base_timesteps": 0, "base_episodes": 0}
+    if resume_meta:
+        state["best"] = resume_meta.get("best", state["best"])
+        state["base_timesteps"] = resume_meta.get("num_timesteps", 0)
+        state["base_episodes"] = resume_meta.get("n_episodes", 0)
     metrics_path = os.path.join(log_dir, "metrics.jsonl")
 
     def callback(_locals, _globals):
@@ -233,7 +300,8 @@ def make_callback(log_dir: str, args, monitor: MonitorWriter, algo):
             state["n_logged"] += 1
 
         update = _locals["update"]
-        if len(ep_returns) >= MIN_EPISODES_BEFORE_SAVE:
+        if (update + 1) % algo.SAVE_INTERVAL == 0 \
+                and len(ep_returns) >= args.min_episodes_save:
             mean_reward = float(np.mean(ep_returns[-N_EPISODES_EVAL:]))
             if mean_reward > state["best"]:
                 state["best"] = mean_reward
@@ -241,18 +309,26 @@ def make_callback(log_dir: str, args, monitor: MonitorWriter, algo):
                            f"over last {N_EPISODES_EVAL} episodes")
                 _locals["self"].save(os.path.join(log_dir, f"{args.algo}_model.pkl"))
 
-        window = ep_returns[-40:]
+        num_timesteps = state["base_timesteps"] + _locals["num_timesteps"]
+        n_episodes = state["base_episodes"] + len(ep_returns)
+        if args.checkpoint_interval and (update + 1) % args.checkpoint_interval == 0:
+            _locals["self"].save_checkpoint(
+                os.path.join(log_dir, "checkpoint.pkl"),
+                meta={"num_timesteps": num_timesteps, "n_episodes": n_episodes,
+                      "update": update, "best": state["best"]})
+
+        window = ep_returns[-args.episode_window:]
         entry = {
             "update": update,
-            "num_timesteps": _locals["num_timesteps"],
-            "n_episodes": len(ep_returns),
+            "num_timesteps": num_timesteps,
+            "n_episodes": n_episodes,
             "mean_reward": float(np.mean(window)) if window else None,
             "fps": _locals["fps"],
             **_locals["metrics"],
         }
         with open(metrics_path, "a") as f:
             f.write(json.dumps(entry) + "\n")
-        if (update + 1) % algo.LOG_INTERVAL == 0 or update + 1 == _locals["n_updates"]:
+        if (update + 1) % algo.LOG_INTERVAL == 0 or update + 1 >= _locals["n_updates"]:
             mean = entry["mean_reward"]
             printGreen(f"update {update + 1}/{_locals['n_updates']}  "
                        f"steps {entry['num_timesteps']}  episodes {entry['n_episodes']}  "
@@ -262,28 +338,97 @@ def make_callback(log_dir: str, args, monitor: MonitorWriter, algo):
     return callback
 
 
+def algo_kwargs(algo_class, args, parser, hyperparams: dict, device) -> dict:
+    """The agent's constructor arguments: the CLI's, and its config from the
+    defaults, then the CLI flags that name a config field, then the parsed
+    ``--hyperparam`` values."""
+    sig = inspect.signature(algo_class.__init__).parameters
+    kwargs = {"num_envs": args.num_envs or DEFAULT_NUM_ENVS, "device": device}
+    if args.policy != "auto":
+        kwargs["policy"] = args.policy
+    if args.recompute_obs:
+        if "recompute_obs" in sig:
+            kwargs["recompute_obs"] = True
+        else:
+            printYellow(f"--recompute-obs has no effect on {args.algo}")
+    default = algo_class(device="cpu").config
+    cfg = dataclasses.asdict(default)
+    cli = {k: v for k, v in vars(args).items()
+           if k in cfg and v is not None and parser.get_default(k) != v}
+    if cli or hyperparams:
+        kwargs["config"] = type(default)(**{**cfg, **cli, **hyperparams})
+    return kwargs
+
+
 def main(argv=None) -> str:
-    args = parse_args(argv)
+    parser = build_parser(argv)
+    args = parser.parse_args(argv)
     device = resolve_device(args.device)
     # Stated, not inherited: float32 matmuls and convolutions stay full
     # float32 (the policy's convs and fc512 run in bfloat16 by design).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    resume_state, resume_meta = None, None
+    if args.resume:
+        with open(os.path.join(args.resume, "args.json")) as f:
+            stored = json.load(f)
+        for k, v in stored.items():
+            if k not in RESUME_KEEPS and hasattr(args, k):
+                setattr(args, k, v)
+        resume_state, resume_meta = BaseRLAgent.load_checkpoint(
+            os.path.join(args.resume, "checkpoint.pkl"))
+        printYellow(f"Resuming {args.resume} from "
+                    f"{resume_meta.get('num_timesteps', 0)} steps")
+
+    algo_class, _, action_types = registered_rl[args.algo]
+    if args.continuous_actions:
+        assert ActionType.CONTINUOUS in action_types, (
+            f"Error: {args.algo} does not support continuous actions")
+    else:
+        assert ActionType.DISCRETE in action_types, (
+            f"Error: {args.algo} does not support discrete actions")
+    algo_class = resolve_policy_class(args.algo, args.policy)
+    hyperparams = algo_class.parserHyperParam(args.hyperparam)
+
     env = build_env(args, device)
-    log_dir = make_run_dir(args)
+    log_dir = args.resume or make_run_dir(args)
     printGreen(f"Log dir: {log_dir}")
     with open(os.path.join(log_dir, "args.json"), "w") as f:
         json.dump({k: v for k, v in vars(args).items()
-                   if not k.startswith("not_ported_")}, f, indent=2)
+                   if isinstance(v, (int, float, str, bool, list, type(None)))}, f, indent=2)
     save_env_params(log_dir, getattr(env, "_env", env))
-    agent = PPO2(env=env, num_envs=args.num_envs, device=device)
+    agent = algo_class(env=env, **algo_kwargs(algo_class, args, parser, hyperparams, device))
+    if args.load_rl_model_path is not None:
+        printYellow(f"Fine-tuning from {args.load_rl_model_path}")
+        agent.pretrained = algo_class.load(args.load_rl_model_path, env=env,
+                                           device=device).state
 
-    monitor = MonitorWriter(log_dir, env_id=args.env)
-    callback = make_callback(log_dir, args, monitor, agent)
-    t0 = time.time()
+    learn_kwargs = {}
     # 1.1x so that the last save interval fits (the reference's inflation).
-    agent.learn(int(args.num_timesteps * 1.1), seed=args.seed, callback=callback)
+    total = int(args.num_timesteps * 1.1)
+    learn_params = inspect.signature(agent.learn).parameters
+    if resume_state is not None:
+        if "initial_state" not in learn_params:
+            raise ValueError(f"--resume is not supported for algo '{args.algo}' yet")
+        total = max(0, total - int(resume_meta.get("num_timesteps", 0)))
+        learn_kwargs["initial_state"] = resume_state
+    if args.updates_per_call > 1 and "updates_per_call" in learn_params:
+        learn_kwargs["updates_per_call"] = args.updates_per_call
+
+    monitor = MonitorWriter(log_dir, env_id=args.env, append=args.resume is not None)
+    callback = make_callback(log_dir, args, monitor, agent, resume_meta)
+    t0 = time.time()
+    if args.profile:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=activities) as prof:
+            agent.learn(total, seed=args.seed, callback=callback, **learn_kwargs)
+        os.makedirs(os.path.join(log_dir, "profile"), exist_ok=True)
+        prof.export_chrome_trace(os.path.join(log_dir, "profile", "trace.json"))
+    else:
+        agent.learn(total, seed=args.seed, callback=callback, **learn_kwargs)
     printGreen(f"Training done in {time.time() - t0:.1f}s")
     agent.save(os.path.join(log_dir, f"{args.algo}_final_model.pkl"))
     monitor.close()

@@ -1,0 +1,182 @@
+"""The agents' public surface, port against reference on the CPU.
+
+* The reference's call forms (C1): ``load(path, env, None)``,
+  ``getAction(obs, dones)`` with ``dones`` positional,
+  ``getAction(obs, dones=d, deterministic=True)`` and
+  ``getActionProba(obs, dones)``, for ppo2, ppo1, a2c and trpo on
+  MobileRobot ground truth (MLP, float32): deterministic actions equal
+  (continuous actions, the Gaussian's mean, and probabilities within rtol
+  1e-6).
+* ``getOptParam`` tables, ``parserHyperParam`` values and its
+  AssertionErrors, the registry's entries and the enums' values: equal.
+* The default configs of the four agents: equal.
+* ``utils.logging``, ``utils.monitor`` (``MonitorWriter(append=True)``,
+  ``load_csv``, ``compute_mean_reward``) and ``RunningNorm.save``/``load``:
+  each file written by one package reads in the other, exactly.
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from srl_tpu.agents import ActionType as JActionType
+from srl_tpu.agents import AlgoType as JAlgoType
+from srl_tpu.agents.a2c import A2C as JA2C
+from srl_tpu.agents.ppo import PPO2 as JPPO2
+from srl_tpu.agents.ppo1 import PPO1 as JPPO1
+from srl_tpu.agents.registry import registered_rl as jregistry
+from srl_tpu.agents.trpo import TRPO as JTRPO
+from srl_tpu.core.normalize import RunningNorm as JNorm
+from srl_tpu.envs.mobile_robot import MobileRobotEnv as JMobile
+from srl_tpu.utils import logging as jlogging
+from srl_tpu.utils import monitor as jmonitor
+from srl_tpu_torch.agents import ActionType, AlgoType
+from srl_tpu_torch.agents.a2c import A2C
+from srl_tpu_torch.agents.ppo import PPO2
+from srl_tpu_torch.agents.ppo1 import PPO1
+from srl_tpu_torch.agents.registry import registered_rl, resolve_policy_class
+from srl_tpu_torch.agents.trpo import TRPO
+from srl_tpu_torch.core.normalize import RunningNorm
+from srl_tpu_torch.envs.mobile_robot import MobileRobotEnv
+from srl_tpu_torch.utils import logging as tlogging
+from srl_tpu_torch.utils import monitor as tmonitor
+
+torch.set_num_threads(1)
+
+ALGOS = {"ppo2": (JPPO2, PPO2), "ppo1": (JPPO1, PPO1), "a2c": (JA2C, A2C),
+         "trpo": (JTRPO, TRPO)}
+
+
+@pytest.mark.parametrize("continuous", [False, True], ids=["discrete", "continuous"])
+@pytest.mark.parametrize("algo", list(ALGOS))
+def test_reference_call_forms(algo, continuous, tmp_path):
+    jcls, tcls = ALGOS[algo]
+    jenv = JMobile(is_discrete=not continuous)
+    jagent = jcls(env=jenv, num_envs=4)
+    jagent.state = jagent.init_state(jax.random.PRNGKey(0))
+    path = str(tmp_path / f"{algo}_model.pkl")
+    jagent.save(path)
+    jloaded = jcls.load(path, jenv, None)
+    tagent = tcls.load(path, MobileRobotEnv(is_discrete=not continuous), None, device="cpu")
+    assert type(tagent) is tcls and tagent.state.obs_norm is not None
+
+    rng = np.random.default_rng(0)
+    obs = rng.normal(size=(6, 2)).astype(np.float32)
+    dones = np.zeros(6, bool)
+    act = tagent.getAction(obs, dones=dones, deterministic=True)
+    ref = np.asarray(jloaded.getAction(obs, dones=dones, deterministic=True))
+    proba = tagent.getActionProba(obs, dones)
+    ref_proba = np.asarray(jloaded.getActionProba(obs, dones))
+    if continuous:
+        np.testing.assert_allclose(act, ref, rtol=1e-6, atol=1e-7)
+    else:
+        np.testing.assert_array_equal(act, ref)
+    np.testing.assert_allclose(proba, ref_proba, rtol=1e-6, atol=1e-7)
+    # ``dones`` in second place is ``dones``, not ``deterministic``: the call
+    # samples, from the generator it is given or the agent's own.
+    sampled = tagent.getAction(obs, dones, gen=torch.Generator().manual_seed(3))
+    again = tagent.getAction(obs, gen=torch.Generator().manual_seed(3))
+    np.testing.assert_array_equal(sampled, again)
+    assert sampled.shape == np.asarray(jloaded.getAction(obs, dones)).shape
+    assert tagent.getAction(obs, dones).shape == sampled.shape
+
+
+@pytest.mark.parametrize("algo", list(ALGOS))
+def test_opt_param_tables_and_parsing(algo):
+    jcls, tcls = ALGOS[algo]
+    table = tcls.getOptParam()
+    assert table == jcls.getOptParam()
+    good = [f"{k}:{'16' if kind is int else '0.5'}" for k, (kind, _) in table.items()
+            if kind in (int, float)]
+    parsed = tcls.parserHyperParam(good)
+    assert parsed == jcls.parserHyperParam(good) and len(parsed) == len(good)
+    assert all(type(parsed[k]) is type(v) for k, v in jcls.parserHyperParam(good).items())
+    for bad in (["gamma0.9"], ["no_such_param:1"]):
+        with pytest.raises(AssertionError) as ref_err:
+            jcls.parserHyperParam(bad)
+        with pytest.raises(AssertionError) as err:
+            tcls.parserHyperParam(bad)
+        assert str(err.value) == str(ref_err.value)
+    assert tcls.parserHyperParam([]) == {} == jcls.parserHyperParam([])
+
+
+def test_registry_and_enums_match_reference():
+    assert {e.name: e.value for e in AlgoType} == {e.name: e.value for e in JAlgoType}
+    assert {e.name: e.value for e in ActionType} == {e.name: e.value for e in JActionType}
+    assert sorted(registered_rl.keys()) == ["a2c", "ppo1", "ppo2", "trpo"]
+    for name in registered_rl:
+        cls, algo_type, actions = registered_rl[name]
+        jcls, jtype, jactions = jregistry[name]
+        assert cls.__name__ == jcls.__name__ and cls.name == jcls.name == name
+        assert (algo_type.name, algo_type.value) == (jtype.name, jtype.value)
+        assert [a.value for a in actions] == [a.value for a in jactions]
+        assert resolve_policy_class(name, "mlp") is cls
+        assert cls.SAVE_INTERVAL == jcls.SAVE_INTERVAL
+    with pytest.raises(NotImplementedError, match="not ported"):
+        resolve_policy_class("ppo2", "cnnlstm")
+
+
+@pytest.mark.parametrize("algo", list(ALGOS))
+def test_default_configs_equal(algo):
+    jcls, tcls = ALGOS[algo]
+    jagent, tagent = jcls(), tcls(device="cpu")
+    assert dataclasses.asdict(tagent.config) == dataclasses.asdict(jagent.config)
+    assert tagent.num_envs == jagent.num_envs and tagent.policy_kind == jagent.policy_kind
+
+
+def test_logging_helpers_match(tmp_path, capsys):
+    x = np.random.default_rng(1).normal(size=(3, 5)) * 10
+    np.testing.assert_array_equal(tlogging.softmax(x), jlogging.softmax(x))
+    for name in ("printGreen", "printYellow", "printRed", "printBlue"):
+        getattr(tlogging, name)("hi")
+        out = capsys.readouterr().out
+        getattr(jlogging, name)("hi")
+        assert out == capsys.readouterr().out
+    tlogging.createFolder(str(tmp_path / "a" / "b"))
+    tlogging.createFolder(str(tmp_path / "a" / "b"), "exists")
+    assert (tmp_path / "a" / "b").is_dir() and "exists" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("first", ["port", "reference"])
+def test_monitor_append_both_ways(first, tmp_path):
+    writers = {"port": tmonitor.MonitorWriter, "reference": jmonitor.MonitorWriter}
+    second = "reference" if first == "port" else "port"
+    w = writers[first](str(tmp_path), env_id="MobileRobotGymEnv-v0")
+    w.write_episode(1.5, 10)
+    w.close()
+    w = writers[second](str(tmp_path), env_id="MobileRobotGymEnv-v0", append=True)
+    w.write_episode(-2.0, 7)
+    w.flush()
+    w.close()
+    with open(tmp_path / "0.monitor.csv") as f:
+        text = f.read()
+    assert text.count("#{") == 1 and text.count("r,l,t") == 1
+    for mod in (tmonitor, jmonitor):
+        data = mod.load_csv(str(tmp_path / "0.monitor.csv"))
+        np.testing.assert_array_equal(data["r"], [1.5, -2.0])
+        np.testing.assert_array_equal(data["l"], [10, 7])
+        assert data["header"]["env_id"] == "MobileRobotGymEnv-v0"
+        assert len(mod.load_results(str(tmp_path))) == 1
+    assert tmonitor.compute_mean_reward(str(tmp_path), 1) \
+        == jmonitor.compute_mean_reward(str(tmp_path), 1) == (True, -2.0)
+    assert tmonitor.compute_mean_reward(str(tmp_path / "none"), 5) == (False, 0.0)
+
+
+@pytest.mark.parametrize("first", ["port", "reference"])
+def test_running_norm_files_both_ways(first, tmp_path):
+    rng = np.random.default_rng(2)
+    batch = (rng.normal(size=(16, 3)) * 3).astype(np.float32)
+    port = RunningNorm.create((3,)).update(torch.from_numpy(batch))
+    ref = JNorm.create((3,)).update(jax.numpy.asarray(batch))
+    (port if first == "port" else ref).save(str(tmp_path))
+    loaded_port = RunningNorm.load(str(tmp_path))
+    loaded_ref = JNorm.load(str(tmp_path))
+    saved = port if first == "port" else ref
+    for k in ("mean", "var", "count"):
+        np.testing.assert_array_equal(np.asarray(getattr(loaded_port, k)),
+                                      np.asarray(getattr(saved, k)))
+        np.testing.assert_array_equal(np.asarray(getattr(loaded_ref, k)),
+                                      np.asarray(getattr(saved, k)))
+    assert loaded_port.count.dtype == torch.float32

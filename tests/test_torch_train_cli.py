@@ -63,8 +63,9 @@ def test_reference_loads_the_port_checkpoint(run_dir):
     assert jagent.policy.torso == "cnn" and jagent.config.n_steps == 128
 
 
-@pytest.mark.parametrize("flag", ["--recompute-obs", "--updates-per-call", "--resume"])
-def test_cli_rejects_flags_not_ported(flag, capsys):
+@pytest.mark.parametrize("flags", [["--policy", "lstm"], ["--policy", "cnnlstm"],
+                                   ["--algo", "sac"]], ids=" ".join)
+def test_cli_rejects_flags_not_ported(flags, capsys):
     with pytest.raises(SystemExit):
-        train.parse_args(["--device", "cpu", flag])
+        train.parse_args(["--device", "cpu"] + flags)
     assert "not ported" in capsys.readouterr().err

@@ -1,0 +1,139 @@
+"""The port's training CLI beyond PPO2 on the CPU (MobileRobot ground
+truth, 4 envs): the other agents, ``--hyperparam``, checkpoint and resume
+(a mirror of tests/test_train_cli.py::test_checkpoint_resume), and
+fine-tuning with ``--load-rl-model-path``.
+
+Fine-tuning at ``learning_rate:0`` keeps the loaded parameters bit for bit
+in the port, which starts ``learn`` from them. The reference's run does not
+keep them: it puts the loaded policy into ``agent.state``, and ``learn``
+then draws fresh parameters (srl_tpu/experiments/train.py:468-472,
+srl_tpu/agents/ppo.py:341-353; ROADMAP Queue C).
+"""
+import json
+import os
+import pickle
+
+import numpy as np
+import pytest
+import torch
+
+from srl_tpu.agents.a2c import A2C as JA2C
+from srl_tpu.envs.mobile_robot import MobileRobotEnv as JMobile
+from srl_tpu.experiments import train as jtrain
+from srl_tpu_torch.agents.base import BaseRLAgent
+from srl_tpu_torch.experiments import train
+
+torch.set_num_threads(1)
+
+GT = ["--env", "MobileRobotGymEnv-v0", "--srl-model", "ground_truth", "--num-envs", "4",
+      "--no-vis"]
+
+
+def run(tmp_path, *argv):
+    return train.main(GT + ["--device", "cpu", "--log-dir", str(tmp_path)] + list(argv))
+
+
+def final_model(log_dir, algo="ppo2"):
+    with open(os.path.join(log_dir, f"{algo}_final_model.pkl"), "rb") as f:
+        return pickle.load(f)
+
+
+@pytest.mark.parametrize("algo, metric", [("a2c", "pg_loss"), ("ppo1", "pg_loss"),
+                                          ("trpo", "kl")])
+def test_cli_trains_the_other_agents(algo, metric, tmp_path):
+    log_dir = run(tmp_path, "--algo", algo, "--num-timesteps", "1500")
+    assert os.path.relpath(log_dir, tmp_path).split(os.sep)[2] == algo
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        lines = [json.loads(x) for x in f]
+    assert lines and all(np.isfinite(e[metric]) for e in lines)
+    payload = final_model(log_dir, algo)
+    assert payload["name"] == algo
+    if algo == "a2c":  # the reference reads the port's model
+        JA2C.load(os.path.join(log_dir, "a2c_final_model.pkl"), env=JMobile())
+
+
+def test_cli_hyperparam_override(tmp_path):
+    log_dir = run(tmp_path, "--num-timesteps", "2000", "--hyperparam", "gamma:0.9",
+                  "n_steps:16")
+    config = final_model(log_dir)["config"]
+    assert config["gamma"] == 0.9 and config["n_steps"] == 16
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        assert json.loads(f.readline())["num_timesteps"] == 16 * 4
+
+
+def test_cli_lr_schedule_flag_reaches_the_config(tmp_path):
+    log_dir = run(tmp_path, "--algo", "a2c", "--lr-schedule", "linear",
+                  "--num-timesteps", "100")
+    assert final_model(log_dir, "a2c")["config"]["lr_schedule"] == "linear"
+
+
+def test_checkpoint_resume(tmp_path):
+    log_dir = run(tmp_path, "--num-timesteps", "2000", "--seed", "3",
+                  "--checkpoint-interval", "2")
+    ckpt = os.path.join(log_dir, "checkpoint.pkl")
+    _, meta = BaseRLAgent.load_checkpoint(ckpt)
+    steps_before = meta["num_timesteps"]
+    assert steps_before > 0 and meta["update"] >= 1
+
+    args_path = os.path.join(log_dir, "args.json")
+    with open(args_path) as f:
+        stored = json.load(f)
+    stored["num_timesteps"] = 8000
+    with open(args_path, "w") as f:
+        json.dump(stored, f)
+
+    log_dir2 = train.main(["--resume", log_dir, "--checkpoint-interval", "2",
+                           "--device", "cpu"])
+    assert log_dir2 == log_dir
+    _, meta2 = BaseRLAgent.load_checkpoint(ckpt)
+    assert meta2["num_timesteps"] > steps_before
+    assert os.path.exists(os.path.join(log_dir, "ppo2_final_model.pkl"))
+    with open(os.path.join(log_dir, "0.monitor.csv")) as f:
+        text = f.read()
+    assert text.count("#{") == 1 and text.count("r,l,t") == 1
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        steps = [json.loads(x)["num_timesteps"] for x in f]
+    assert steps == sorted(steps) and steps[-1] > steps_before
+
+
+def test_load_rl_model_path_at_lr_zero_keeps_the_weights(tmp_path):
+    pretrained = os.path.join(run(tmp_path / "a", "--num-timesteps", "1000"),
+                              "ppo2_final_model.pkl")
+    loaded = final_model(os.path.dirname(pretrained))
+    fine = ["--load-rl-model-path", pretrained, "--hyperparam", "learning_rate:0",
+            "--num-timesteps", "1000", "--seed", "4"]
+    port = final_model(run(tmp_path / "b", *fine))
+    ref = final_model(jtrain.main(GT + ["--log-dir", str(tmp_path / "c")] + fine))
+    leaves = lambda d: [np.asarray(x) for x in _leaves(d["params"])]
+    for a, b in zip(leaves(port), leaves(loaded)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(port["obs_norm"]["mean"].shape, loaded["obs_norm"]["mean"].shape)
+    assert not all(np.array_equal(a, b) for a, b in zip(leaves(ref), leaves(loaded)))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    else:
+        yield tree
+
+
+def test_cli_profile_writes_a_trace(tmp_path):
+    log_dir = run(tmp_path, "--num-timesteps", "100", "--profile")
+    with open(os.path.join(log_dir, "profile", "trace.json")) as f:
+        assert json.load(f)["traceEvents"]
+
+
+def test_cli_run_flags_reach_the_env_and_agent(tmp_path):
+    args = train.parse_args(["--device", "cpu", "--action-repeat", "2", "-joints",
+                             "--render-scale", "7", "--policy", "mlp"])
+    env = train.build_env(args, "cpu")
+    assert env.action_repeat == 2 and env.action_joints
+    log_dir = run(tmp_path, "--num-timesteps", "100", "--policy", "mlp",
+                  "--min-episodes-save", "1", "--episode-window", "5")
+    payload = final_model(log_dir)
+    assert payload["policy_kind"] == "mlp"
+    with open(os.path.join(log_dir, "args.json")) as f:
+        stored = json.load(f)
+    assert stored["min_episodes_save"] == 1 and stored["episode_window"] == 5
