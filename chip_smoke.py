@@ -57,7 +57,18 @@ Phases, each reported on its own lines; any failure exits non-zero:
    ``--hyperparam learning_rate:0`` for 1 update (the saved parameters equal
    the loaded ones bit for bit); A2C (256 envs), PPO1 (64 envs, 256 steps)
    and TRPO (64 envs) for 2 updates each, every loss finite and render3d
-   launched.
+   launched;
+8. the recurrent agents and ACKTR at the reference's widths (Nature CNN
+   32/64/64/fc512, an LSTM of 64, 256 envs), each through the training CLI
+   with the counts set to 0 just before: 8a, PPO2 with ``--policy cnnlstm``
+   on the Kuka pixel path for one update at the tuned n_steps 609 (155,904
+   env steps; render3d must launch exactly 610 times), its saved
+   ``ppo2_lstm`` model reloaded and acting as the trained agent (the
+   run's checkpoint) does; 8b, A2C with ``--policy cnnlnlstm`` on the same
+   path (5 steps, 2 updates); 8c, ACKTR with the CNN on MobileRobot 224x224
+   pixels (render2d; 20 steps, 2 updates: the 2305x2305 fc factor and its
+   inverse), its ``eta`` printed; 8d, ACKTR with ``--policy cnnlstm`` on the
+   Kuka pixel path (2 updates).
 
 The line before the last is a JSON object with each kernel's numbers, the
 last ``{"ok": true, "device": {...}}``. Needs the card and the rest of the
@@ -370,6 +381,8 @@ PPO_KEYS = ("pg_loss", "vf_loss", "entropy", "approx_kl", "explained_variance",
             "mean_reward_per_step")
 A2C_KEYS = ("pg_loss", "vf_loss", "entropy", "explained_variance", "mean_reward_per_step")
 TRPO_KEYS = ("surrogate_improve", "kl", "line_search_accepted", "mean_reward_per_step")
+LSTM_PPO_KEYS = ("loss",) + PPO_KEYS
+ACKTR_KEYS = ("loss", "eta", "mean_reward_per_step")
 
 
 def run_cli(torch, train, argv, counters, what, keys=PPO_KEYS):
@@ -709,6 +722,76 @@ def full_surface(torch, train, counters, stored_launches: int, stored_seconds: f
     return out
 
 
+# Step 8's runs at the reference's widths, 256 envs: the recurrent PPO2 for
+# one update at its tuned 609 steps (int(155,904 * 1.1) // (609 * 256) = 1),
+# the recurrent A2C (5 steps) and both ACKTRs (20 steps) for 2 updates.
+LSTM_PPO_ARGS = with_flags(KUKA_ARGS, policy="cnnlstm", num_timesteps=609 * 256)
+LSTM_A2C_ARGS = with_flags(KUKA_ARGS, algo="a2c", policy="cnnlnlstm", num_timesteps=2400)
+ACKTR_ARGS = with_flags(MOBILE_ARGS, algo="acktr", num_timesteps=9400)
+LSTM_ACKTR_ARGS = with_flags(KUKA_ARGS, algo="acktr", policy="cnnlstm", num_timesteps=9400)
+
+
+def recurrent_agents(torch, train, counters) -> dict:
+    """Step 8: the recurrent PPO2 (8a, the slice's main path), A2C (8b) and
+    ACKTR (8d) on the Kuka pixel path, ACKTR with the CNN on MobileRobot
+    pixels (8c)."""
+    from srl_tpu_torch.agents.base import BaseRLAgent
+    from srl_tpu_torch.agents.recurrent_ppo import RecurrentPPO2
+    from srl_tpu_torch.core.env import VecEnv
+
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        log_dir, seconds, launches, entries = run_cli(
+            torch, train, LSTM_PPO_ARGS + ["--checkpoint-interval", "1", "--log-dir", root,
+                                           "--device", "cuda"],
+            counters, "8a ppo2 --policy cnnlstm KukaButtonGymEnv-v0 raw_pixels 256 envs, "
+            "n_steps 609", LSTM_PPO_KEYS)
+        if len(entries) != 1 or launches["render3d"] != 609 + 1:
+            raise AssertionError(f"8a: {len(entries)} updates, render3d launched "
+                                 f"{launches['render3d']} times, not 610")
+        out["lstm_ppo"] = launches["render3d"]
+        # The saved model and the trained state (the run's checkpoint) act alike.
+        env = train.build_env(train.parse_args(LSTM_PPO_ARGS + ["--device", "cuda"]), "cuda")
+        saved = RecurrentPPO2.load(os.path.join(log_dir, "ppo2_final_model.pkl"), env, None,
+                                   device="cuda")
+        ckpt, _ = BaseRLAgent.load_checkpoint(os.path.join(log_dir, "checkpoint.pkl"))
+        trained = RecurrentPPO2(env=env, num_envs=256, policy="cnnlstm", device="cuda")
+        trained.state = trained.loaded_state(trained._state_dict(ckpt.params), None)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        vec = VecEnv(env, 8)
+        vstate, obs = vec.reset(gen)
+        acts = []
+        for dones in (None, np.array([True] + [False] * 7)):
+            frames = obs.cpu().numpy()
+            a, b = (agent.getAction(frames, dones, deterministic=True)
+                    for agent in (saved, trained))
+            if not np.array_equal(a, b):
+                raise AssertionError(f"8a: the reloaded ppo2_lstm model acts {a.tolist()}, "
+                                     f"the trained agent {b.tolist()}")
+            acts.append(a.tolist())
+            vstate, tr = vec.step(vstate, torch.as_tensor(a, device="cuda"), gen)
+            obs = tr.obs
+        name = BaseRLAgent._load_pickle(os.path.join(log_dir, "ppo2_final_model.pkl"))["name"]
+        log(f"[lstm] 8a: the saved '{name}' model reloads and acts as the trained agent on "
+            f"two steps of 8 Kuka frames: {acts}; metrics loss {entries[0]['loss']:.5g}, "
+            f"explained_variance {entries[0]['explained_variance']:.4g}")
+        if name != "ppo2_lstm":
+            raise AssertionError(f"8a: the policy pickle is named {name}")
+
+    for step, args, keys, kernel in (
+            ("8b a2c --policy cnnlnlstm", LSTM_A2C_ARGS, A2C_KEYS, "render3d"),
+            ("8c acktr (cnn) MobileRobotGymEnv-v0 raw_pixels 224x224", ACKTR_ARGS, ACKTR_KEYS,
+             "render2d"),
+            ("8d acktr --policy cnnlstm", LSTM_ACKTR_ARGS, ACKTR_KEYS, "render3d")):
+        _, launches, entries = drive(torch, train, args, counters, f"{step} 256 envs", keys=keys)
+        if launches[kernel] <= 0 or len(entries) != 2:
+            raise AssertionError(f"{step}: {len(entries)} updates, launches {launches}")
+        if "eta" in keys:
+            log(f"[acktr] {step}: eta by update " + ", ".join(f"{e['eta']:.6g}" for e in entries))
+        out[step.split()[0]] = launches[kernel]
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -816,6 +899,12 @@ def main() -> int:
     surface_launches = full_surface(torch, train, counters, kuka_launches["render3d"],
                                     kuka_seconds)
     log(f"[main] render3d launches: {json.dumps(surface_launches)}")
+    t_step8 = time.perf_counter()
+
+    # 8. The recurrent agents and ACKTR.
+    lstm_launches = recurrent_agents(torch, train, counters)
+    log(f"[lstm] launches: {json.dumps(lstm_launches)}; step 8 took "
+        f"{time.perf_counter() - t_step8:.1f} s")
     log(f"[done] {time.perf_counter() - t_start:.1f} s after start-up")
 
     print(json.dumps({"kernels": [{
@@ -825,6 +914,7 @@ def main() -> int:
         "replaces": "srl_tpu/ops/pallas_render3d.py:480",
         "launches": kuka_launches["render3d"],
         "recompute_obs_launches": surface_launches["recompute_obs"],
+        "lstm_ppo_launches": lstm_launches["lstm_ppo"],
         "max_abs_err": max(r3_err, mb["max_abs_err"]),
         "ms": r3_ms,
         "plain_ms": r3_plain_ms,
@@ -837,6 +927,7 @@ def main() -> int:
         "source": "srl_tpu_torch/csrc/render2d.cu",
         "replaces": "srl_tpu/ops/pallas_render.py:111",
         "launches": mobile_launches["render2d"],
+        "acktr_launches": lstm_launches["8c"],
         "max_abs_err": r2_err,
         "ms": r2_ms,
         "plain_ms": r2_plain_ms,

@@ -1,5 +1,5 @@
-"""A2C, the feed-forward synchronous advantage actor-critic (counterpart of
-``A2C`` in srl_tpu/agents/a2c.py; ``RecurrentA2C`` is not ported yet).
+"""A2C, the synchronous advantage actor-critic (counterpart of
+srl_tpu/agents/a2c.py): ``A2C`` and, with an lstm policy, ``RecurrentA2C``.
 
 Same defaults as the reference (n_steps 5, vf_coef 0.5, ent_coef 0.01,
 max_grad_norm 0.5, RMSProp lr 7e-4 with decay 0.99 and eps 1e-5, gamma
@@ -10,6 +10,11 @@ constant, optax's global-norm clip and optax's RMSProp (``core/optim``).
 name is a constant lr, as in the reference. The policy is built without
 ``input_scale``, as the reference builds it: on coarse observations the
 Nature CNN runs on the 112x112 image itself, with no conv1 fold.
+
+``RecurrentA2C`` keeps the carry through the rollout (zeroed at episode
+starts) and takes its one full-batch step with backpropagation through time
+over the [T, N] segment from the segment's initial carry, its policy
+pickle named ``"a2c_lstm"``.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch
 from srl_tpu_torch.agents.base import BaseRLAgent, PPOState
 from srl_tpu_torch.agents.common import collect_rollout, compute_gae, explained_variance
 from srl_tpu_torch.agents.ppo import EMPTY_STATE, SCHEDULE_STATE, clip_by_global_norm_
+from srl_tpu_torch.agents.recurrent_ppo import RecurrentPolicyMixin, RecurrentPPOState
 from srl_tpu_torch.bridge import Record
 from srl_tpu_torch.core.device import resolve_device
 from srl_tpu_torch.core.optim import rmsprop_init, rmsprop_update_
@@ -79,31 +85,46 @@ class A2C(BaseRLAgent):
         return (empty, (Record(RMS_STATE, args=(self._flax(opt_state["nu"]),)), lr, empty))
 
     # ------------------------------------------------------------------
+    def _batch_forward(self, params, obs):
+        """(distribution, values) of the batch's observations."""
+        return self.apply(params, obs)
+
     def update(self, params, opt_state, data):
         """One full-batch step from the flat batch ``data`` = (obs, actions,
-        advantages, returns): (params', opt_state', losses); the inputs are
-        left as they are."""
-        cfg = self.config
-        obs, actions, advantages, returns = data
+        advantages, returns) (RecurrentA2C: the [T, N] segment, its ``obs``
+        the triple (obs, done_in, carry0)): (params', opt_state', losses);
+        the inputs are left as they are."""
+        obs, *rest = data
         names = list(params)
         leaves = {k: params[k].detach().requires_grad_(True) for k in names}
-        dist, vpred = self.apply(leaves, obs)
-        logp = dist.log_prob(actions)
-        pg_loss = -torch.mean(advantages.detach() * logp)
-        vf_loss = torch.mean(torch.square(vpred - returns))
-        entropy = torch.mean(dist.entropy())
-        total = pg_loss + cfg.vf_coef * vf_loss - cfg.ent_coef * entropy
+        dist, vpred = self._batch_forward(leaves, obs)
+        total, losses = self._objective(dist, vpred, *rest)
         grads = dict(zip(names, torch.autograd.grad(total, [leaves[k] for k in names])))
         params = {k: v.detach().clone() for k, v in params.items()}
         opt_state = {"count": opt_state["count"],
                      "nu": {k: v.clone() for k, v in opt_state["nu"].items()}}
         with torch.no_grad():
-            clip_by_global_norm_(grads, cfg.max_grad_norm)
-            rmsprop_update_(params, grads, opt_state, self.learning_rate(opt_state["count"]),
-                            cfg.alpha, cfg.epsilon)
-        losses = {"pg_loss": pg_loss.detach(), "vf_loss": vf_loss.detach(),
-                  "entropy": entropy.detach()}
+            self.optimizer_step_(params, grads, opt_state)
         return params, opt_state, losses
+
+    def _objective(self, dist, vpred, actions, advantages, returns):
+        """(the A2C loss, its parts) of the batch's policy outputs, the
+        advantages held constant."""
+        cfg = self.config
+        pg_loss = -torch.mean(advantages.detach() * dist.log_prob(actions))
+        vf_loss = torch.mean(torch.square(vpred - returns))
+        entropy = torch.mean(dist.entropy())
+        total = pg_loss + cfg.vf_coef * vf_loss - cfg.ent_coef * entropy
+        return total, {"pg_loss": pg_loss.detach(), "vf_loss": vf_loss.detach(),
+                       "entropy": entropy.detach()}
+
+    def optimizer_step_(self, params, grads, opt_state):
+        """optax's global-norm clip, then RMSProp, in place on ``params``
+        and ``opt_state``; ``grads`` is consumed."""
+        cfg = self.config
+        clip_by_global_norm_(grads, cfg.max_grad_norm)
+        rmsprop_update_(params, grads, opt_state, self.learning_rate(opt_state["count"]),
+                        cfg.alpha, cfg.epsilon)
 
     def train_iteration(self, state: PPOState, gen: torch.Generator):
         cfg = self.config
@@ -154,3 +175,35 @@ class A2C(BaseRLAgent):
         parser.add_argument("--lr-schedule", help="Learning rate schedule",
                             default="constant", choices=LR_SCHEDULES)
         return parser
+
+
+class RecurrentA2C(RecurrentPolicyMixin, A2C):
+    pickle_name = "a2c_lstm"
+
+    def __init__(self, env=None, num_envs: int = 16, policy: str = "lstm",
+                 config: A2CConfig = None, normalize_obs: Optional[bool] = None,
+                 device="cuda"):
+        super().__init__(env=env, num_envs=num_envs, policy=policy, config=config,
+                         normalize_obs=normalize_obs, device=device)
+
+    def _batch_forward(self, params, segment):
+        obs, done_in, carry0 = segment
+        dist, vpred, _ = self.apply(params, obs, carry0, done_in)
+        return dist, vpred
+
+    def train_iteration(self, state: RecurrentPPOState, gen: torch.Generator):
+        cfg = self.config
+        vstate, obs, done, carry, obs_norm, batch, last_value = self.rollout(state, gen)
+        advantages, returns = compute_gae(batch.rewards, batch.values, batch.dones,
+                                          last_value, cfg.gamma, 1.0)
+        params, opt_state, metrics = self.update(
+            state.params, state.opt_state,
+            ((batch.obs, batch.done_in, batch.carry0), batch.actions, advantages, returns))
+        metrics["explained_variance"] = explained_variance(batch.values.reshape(-1),
+                                                           returns.reshape(-1))
+        metrics["episode_return"] = batch.episode_return
+        metrics["episode_length"] = batch.episode_length
+        metrics["mean_reward_per_step"] = batch.rewards.mean()
+        return RecurrentPPOState(params=params, opt_state=opt_state, vstate=vstate,
+                                 obs=obs, done=done, lstm_state=carry, obs_norm=obs_norm,
+                                 update_idx=state.update_idx + 1), metrics

@@ -48,6 +48,7 @@ class BaseRLAgent:
     ``train_iteration(state, gen)`` returns (state', metrics)."""
 
     name = "base"
+    pickle_name = None  # the policy pickle's "name" where it is not ``name``
     LOG_INTERVAL = 10
     SAVE_INTERVAL = 1
     config_class = None
@@ -195,12 +196,16 @@ class BaseRLAgent:
         dist = self._act_dist(observation)
         if deterministic:
             return dist.mode().cpu().numpy()
+        return dist.sample(self._sampling_gen(gen)).cpu().numpy()
+
+    def _sampling_gen(self, gen: Optional[torch.Generator]) -> torch.Generator:
+        """``gen``, else the agent's own acting generator, seeded with 0."""
         if gen is None:
             if self._act_gen is None:
                 self._act_gen = torch.Generator(device=self.device)
                 self._act_gen.manual_seed(0)
             gen = self._act_gen
-        return dist.sample(gen).cpu().numpy()
+        return gen
 
     @torch.no_grad()
     def getActionProba(self, observation, dones=None):
@@ -234,45 +239,57 @@ class BaseRLAgent:
             return pickle.load(f)
 
     def save(self, save_path: str, _locals=None):
+        self._save_pickle(save_path, self.policy_payload())
+
+    def policy_payload(self) -> dict:
+        """The policy pickle: the reference's payload."""
         norm = self.state.obs_norm
-        self._save_pickle(save_path, {
-            "name": self.name,
+        return {
+            "name": self.pickle_name or self.name,
             "config": dataclasses.asdict(self.config),
             "num_envs": self.num_envs,
             "policy_kind": self.policy_kind,
             "normalize_obs": self.normalize_obs,
-            "params": bridge.state_dict_to_flax(self.state.params,
-                                                self.policy.torso_kind),
+            "params": self._flax(self.state.params),
             "obs_norm": (self._to_numpy({"mean": norm.mean, "var": norm.var,
                                          "count": norm.count})
                          if norm is not None else None),
-        })
+        }
 
     @classmethod
     def load(cls, load_path: str, env=None, args=None, *, device="cuda"):
         """The agent of a policy pickle (either package's), its parameters
         and normalizer on ``device``; ``args`` is unused, as in the
         reference."""
-        d = bridge.load_jax_checkpoint(load_path)
+        d = cls._load_pickle(load_path)
         agent = cls(env=env, num_envs=d["num_envs"], policy=d["policy_kind"],
                     config=cls.config_class(**d["config"]),
                     normalize_obs=d["normalize_obs"], device=device)
-        dev = agent.device
-        obs_norm = None
-        if d["obs_norm"] is not None:
-            obs_norm = RunningNorm(
-                **{k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
-                   for k, v in d["obs_norm"].items()})
-        params = {k: v.to(dev) for k, v in d["state_dict"].items()}
-        agent.state = PPOState(params=params, opt_state=None, vstate=None, obs=None,
-                               obs_norm=obs_norm)
+        agent.restore_policy(d)
         return agent
+
+    def restore_policy(self, payload: dict):
+        """``self.state`` from a policy pickle: its parameters and
+        normalizer on the device."""
+        norm = payload["obs_norm"]
+        if norm is not None:
+            norm = RunningNorm(**{k: torch.as_tensor(np.asarray(v, np.float32),
+                                                     device=self.device)
+                                  for k, v in norm.items()})
+        self.state = self.loaded_state(self._state_dict(payload["params"]), norm)
+
+    def loaded_state(self, params, obs_norm):
+        """The state of a loaded policy: parameters and normalizer only."""
+        return PPOState(params=params, opt_state=None, vstate=None, obs=None,
+                        obs_norm=obs_norm)
 
     # ---- full training-state checkpoints ----------------------------------
     # A subclass that writes checkpoints provides
     # ``opt_state_to_reference(opt_state)``, its optimizer state as the
     # reference's optax state (``bridge.Record``s); one that resumes them,
     # ``opt_state_from_reference(ref)``, the converse.
+    # The parameter tree (and every tree shaped like it) in the reference's
+    # layout, and back; the recurrent agents and ACKTR override both.
     def _flax(self, tree):
         return bridge.state_dict_to_flax(tree, self.policy.torso_kind)
 
@@ -280,12 +297,9 @@ class BaseRLAgent:
         return {k: v.to(self.device) for k, v in
                 bridge.flax_to_state_dict(tree, self.policy.torso_kind).items()}
 
-    def save_checkpoint(self, path: str, meta: Optional[dict] = None):
-        """Atomically write the whole training state (parameters, optimizer,
-        env batch, observations, normalizer, update counter, the
-        generator's state) and the progress ``meta``."""
-        s = self.state
-        ref = bridge.Record("srl_tpu.agents.ppo.PPOState", {
+    def state_to_reference(self, s) -> "bridge.Record":
+        """The training state ``s`` as the reference's ``PPOState``."""
+        return bridge.Record("srl_tpu.agents.ppo.PPOState", {
             "params": self._flax(s.params),
             "opt_state": self.opt_state_to_reference(s.opt_state),
             "vstate": bridge.to_reference(s.vstate, self.seed),
@@ -294,6 +308,12 @@ class BaseRLAgent:
             "key": bridge.fresh_keys(self.seed, 1)[0],
             "update_idx": np.asarray(s.update_idx, np.int32),
         })
+
+    def save_checkpoint(self, path: str, meta: Optional[dict] = None):
+        """Atomically write the whole training state (parameters, optimizer,
+        env batch, observations, normalizer, update counter, the
+        generator's state) and the progress ``meta``."""
+        ref = self.state_to_reference(self.state)
         bridge.write_reference_pickle({
             "state": ref, "meta": meta or {},
             "torch_generator": {"device_type": self.gen.device.type,
@@ -335,3 +355,53 @@ class BaseRLAgent:
             print(f"Resuming {origin} on {self.device.type}: the random stream "
                   f"starts fresh from seed {seed}")
         return state
+
+
+class RecurrentActing:
+    """Stateful acting of the recurrent agents, as the reference's: the
+    carry persists between ``getAction`` calls (zeros for a new batch
+    size), ``dones`` zeroes it where an episode starts, and
+    ``getActionProba`` reads the context the last ``getAction`` acted from
+    without advancing it (zeros before any call). A subclass provides
+    ``_policy_step(params, obs, carry, done)`` -> (distribution, value,
+    carry') and ``n_lstm``."""
+
+    _act_carry = None
+    _act_ctx = None
+
+    def _act_step(self, observation, carry, done):
+        obs = torch.as_tensor(np.asarray(observation), device=self.device)
+        if self.state.obs_norm is not None:
+            obs = self.state.obs_norm.normalize(obs)
+        return self._policy_step(self.state.params, obs, carry, done)
+
+    def _zero_context(self, n: int):
+        zeros = torch.zeros((n, self.n_lstm), dtype=torch.float32, device=self.device)
+        return (zeros, zeros.clone()), torch.zeros(n, dtype=torch.bool, device=self.device)
+
+    @torch.no_grad()
+    def getAction(self, observation, dones=None, deterministic: bool = False, *,
+                  gen: Optional[torch.Generator] = None):
+        n = len(observation)
+        if self._act_carry is None or self._act_carry[0].shape[0] != n:
+            self._act_carry = self._zero_context(n)[0]
+        done = (torch.zeros(n, dtype=torch.bool, device=self.device) if dones is None
+                else torch.as_tensor(np.asarray(dones), device=self.device).to(torch.bool))
+        self._act_ctx = (self._act_carry, done)
+        dist, _, self._act_carry = self._act_step(observation, self._act_carry, done)
+        if deterministic:
+            return dist.mode().cpu().numpy()
+        return dist.sample(self._sampling_gen(gen)).cpu().numpy()
+
+    @torch.no_grad()
+    def getActionProba(self, observation, dones=None):
+        n = len(observation)
+        ctx = self._act_ctx
+        if ctx is not None and ctx[0][0].shape[0] >= n:
+            carry, done = (ctx[0][0][:n], ctx[0][1][:n]), ctx[1][:n]
+        else:
+            carry, done = self._zero_context(n)
+        dist, _, _ = self._act_step(observation, carry, done)
+        if isinstance(self.env.action_space, Discrete):
+            return dist.probs().cpu().numpy()
+        return dist.mean.cpu().numpy()

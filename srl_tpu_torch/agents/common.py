@@ -77,6 +77,55 @@ def collect_rollout(
     return vstate, obs, obs_norm, last_norm_obs, batch
 
 
+@dataclasses.dataclass
+class RecurrentRolloutBatch(RolloutBatch):
+    """A ``RolloutBatch`` of a recurrent policy: ``done_in`` [T, N] is the
+    episode-start mask each step acted with (the previous step's ``done``),
+    ``carry0`` the carry the segment started from."""
+
+    done_in: torch.Tensor = None
+    carry0: tuple = None
+
+
+@torch.no_grad()
+def collect_recurrent_rollout(
+    vec_env: VecEnv,
+    policy: Callable,
+    vstate: VecEnvState,
+    obs: torch.Tensor,
+    done: torch.Tensor,
+    carry: tuple,
+    obs_norm: Optional[RunningNorm],
+    gen: torch.Generator,
+    n_steps: int,
+):
+    """``collect_rollout`` for a recurrent policy: ``policy(obs, carry,
+    done)`` returns (distribution, value, carry'), ``done`` [N] masks the
+    carry at episode starts. Returns (vstate', last_obs, done', carry',
+    obs_norm', last_norm_obs, batch)."""
+    carry0 = carry
+    observed, steps = [], []
+    for _ in range(n_steps):
+        if obs_norm is not None:
+            obs_norm = obs_norm.update(obs)
+            norm_obs = obs_norm.normalize(obs)
+        else:
+            norm_obs = obs
+        dist, value, carry = policy(norm_obs, carry, done)
+        action = dist.sample(gen)
+        observed.append(norm_obs)
+        done_in = done
+        vstate, tr = vec_env.step(vstate, action, gen)
+        steps.append((action, dist.log_prob(action), value, tr.reward, tr.done,
+                      tr.episode_return, tr.episode_length, done_in))
+        obs, done = tr.obs, tr.done
+    stack = lambda *xs: torch.stack(xs)
+    batch = RecurrentRolloutBatch(stack(*observed), *(stack(*x) for x in zip(*steps)),
+                                  carry0=carry0)
+    last_norm_obs = obs_norm.normalize(obs) if obs_norm is not None else obs
+    return vstate, obs, done, carry, obs_norm, last_norm_obs, batch
+
+
 def compute_gae(rewards, values, dones, last_value, gamma: float, lam: float):
     """Generalized advantage estimation over [T, N]; a done at step t cuts
     the bootstrap from t + 1. Returns (advantages, returns)."""

@@ -170,17 +170,30 @@ class PPO2(BaseRLAgent):
                 "nu": self._state_dict(adam.nu)}
 
     # ------------------------------------------------------------------
-    def _loss(self, params, minibatch, cliprange):
-        obs, actions, old_logp, old_values, advantages, returns = minibatch
+    def _minibatch_forward(self, params, obs):
+        """(distribution, values) of a minibatch's observations."""
         if self.recompute_obs:
             # ``obs`` is the gathered env states: render this minibatch's
             # frames (no gradient flows into a render).
             with torch.no_grad():
                 obs = self.vec_env.env.observe(obs)
         if self.remat_policy:
-            dist, vpred = checkpoint(self.apply, params, obs, use_reentrant=False)
-        else:
-            dist, vpred = self.apply(params, obs)
+            return checkpoint(self.apply, params, obs, use_reentrant=False)
+        return self.apply(params, obs)
+
+    def _minibatch(self, data, idx):
+        """The minibatch of the flat batch ``data`` at indices ``idx``."""
+        return tuple(_gather(x, idx) for x in data)
+
+    def _loss(self, params, minibatch, cliprange):
+        obs, *rest = minibatch
+        dist, vpred = self._minibatch_forward(params, obs)
+        return self._objective(dist, vpred, *rest, cliprange)
+
+    def _objective(self, dist, vpred, actions, old_logp, old_values, advantages, returns,
+                   cliprange):
+        """(the clipped PPO loss, its parts) of the minibatch's policy
+        outputs."""
         logp = dist.log_prob(actions)
         entropy = torch.mean(dist.entropy())
 
@@ -224,7 +237,7 @@ class PPO2(BaseRLAgent):
         for perm in perms:
             for i in range(cfg.nminibatches):
                 idx = perm[i * mb_size:(i + 1) * mb_size]
-                mb = tuple(_gather(x, idx) for x in data)
+                mb = self._minibatch(data, idx)
                 leaves = {k: params[k].detach().requires_grad_(True) for k in names}
                 loss, aux = self._loss(leaves, mb, cfg.cliprange)
                 grads = torch.autograd.grad(loss, [leaves[k] for k in names])

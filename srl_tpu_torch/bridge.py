@@ -4,9 +4,15 @@
   ``state_dict`` and back: a Dense kernel [in, out] is a Linear weight
   [out, in], a conv kernel HWIO is OIHW, and the Nature CNN's fc kernel needs
   nothing more because both torsos flatten in NHWC order.
-* ``load_jax_checkpoint`` reads the pickles the reference agents write
-  (``{"name", "config", "num_envs", "policy_kind", "normalize_obs",
-  "params", "obs_norm"}``) and the port writes the same format.
+* ``recurrent_state_dict_to_flax`` / ``recurrent_flax_to_state_dict`` do
+  the same for the recurrent ``LstmActorCritic`` (the torso under
+  ``features``, the cell's stacked gate kernels split into Flax's one Dense
+  per gate and side, the LayerNorm's ``scale``), and
+  ``acktr_params_to_reference`` / ``acktr_params_from_reference`` for
+  ACKTR's explicit parameter dicts (conv kernels OIHW <-> HWIO). The agents'
+  policy pickles (``{"name", "config", "num_envs", "policy_kind",
+  "normalize_obs", "params", "obs_norm"}``, ACKTR's with ``cnn_geom``) hold
+  the reference's trees, so each package reads the other's.
 * ``srl_state_dict_to_flax`` / ``srl_flax_to_state_dict`` do the same for
   the SRL networks (``srl/nets.py``), whose deconv kernels are also
   spatially flipped.
@@ -17,10 +23,12 @@
   of per-family ``VecEnvState``s.
 * ``read_reference_pickle`` / ``write_reference_pickle`` read and write the
   reference's full training-state checkpoints (``checkpoint.pkl``: a
-  ``PPOState`` of params, optax state, ``VecEnvState``, observations,
-  ``RunningNorm``, key and update counter) by class name, importing neither
-  ``srl_tpu`` nor optax: the reference's classes become ``Record``s, and
-  ``to_port`` / ``to_reference`` convert their state dataclasses both ways.
+  ``PPOState``, ``RecurrentPPOState``, ``ACKTRState`` or
+  ``RecurrentACKTRState`` of params, optimizer state, ``VecEnvState``,
+  observations, ``RunningNorm``, key and update counter) by class name,
+  importing neither ``srl_tpu`` nor optax: the reference's classes become
+  ``Record``s, and ``to_port`` / ``to_reference`` convert their state
+  dataclasses both ways.
 
 This module imports neither package's framework beyond torch and numpy; the
 tests hand it the reference's arrays.
@@ -101,23 +109,103 @@ def flax_to_state_dict(tree: dict, torso_kind: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+# The recurrent policy's cell: the port stacks each side's four gate kernels
+# (i, f, g, o) in one tensor, Flax keeps one Dense per gate and side.
+_GATES = "ifgo"
+
+
+def recurrent_state_dict_to_flax(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """``LstmActorCritic`` state_dict -> the reference's ``{"params": {...}}``
+    tree: the torso under ``features``, ``cell/i{g}/kernel`` (no bias) and
+    ``cell/h{g}/{kernel,bias}`` for each gate g of i, f, g, o, ``ln/{scale,
+    bias}``, ``vf``, ``pi`` and ``log_std``."""
+    tree: dict = {}
+    for name, value in state_dict.items():
+        x = value.detach().to("cpu", torch.float32).numpy()
+        side = {"cell.weight_ih": ("i", "kernel"), "cell.weight_hh": ("h", "kernel"),
+                "cell.bias_hh": ("h", "bias")}.get(name)
+        if side is not None:
+            cell = tree.setdefault("cell", {})
+            for gate, part in zip(_GATES, np.split(x, 4)):
+                leaf = np.ascontiguousarray(part.T if side[1] == "kernel" else part)
+                cell.setdefault(side[0] + gate, {})[side[1]] = leaf
+            continue
+        parts = name.split(".")
+        if parts[0] == "torso":
+            parts[0] = "features"
+        if parts[0] == "ln":
+            parts[-1] = "scale" if parts[-1] == "weight" else "bias"
+        elif parts[-1] == "weight":
+            parts[-1] = "kernel"
+        node = tree
+        for key in parts[:-1]:
+            node = node.setdefault(key, {})
+        node[parts[-1]] = _to_flax(name, x)
+    return {"params": tree}
+
+
+def recurrent_flax_to_state_dict(tree: dict) -> Dict[str, torch.Tensor]:
+    """The reference's recurrent ``{"params": {...}}`` tree -> an
+    ``LstmActorCritic`` state_dict (CPU float32)."""
+    params = {k: v for k, v in tree["params"].items() if k != "cell"}
+    cell = tree["params"]["cell"]
+    out = {}
+    for name, (side, leaf) in {"cell.weight_ih": ("i", "kernel"),
+                               "cell.weight_hh": ("h", "kernel"),
+                               "cell.bias_hh": ("h", "bias")}.items():
+        parts = [np.asarray(cell[side + g][leaf], np.float32) for g in _GATES]
+        stacked = np.concatenate([p.T if leaf == "kernel" else p for p in parts])
+        out[name] = torch.tensor(np.ascontiguousarray(stacked))
+
+    def walk(node, prefix):
+        for key, value in node.items():
+            if isinstance(value, dict):
+                walk(value, prefix + [key])
+                continue
+            parts = prefix + [key]
+            if parts[0] == "features":
+                parts[0] = "torso"
+            if parts[-1] in ("kernel", "scale"):
+                parts[-1] = "weight"
+            name = ".".join(parts)
+            out[name] = torch.tensor(_from_flax(name, np.asarray(value, np.float32)))
+
+    walk(params, [])
+    return out
+
+
+# ACKTR's explicit parameter dicts keep the reference's names and its
+# [in, out] dense layout; only the conv kernels differ (HWIO there, OIHW
+# here). The fc input flattens in NHWC order on both sides.
+_ACKTR_CONVS = ("C1", "C2", "C3")
+
+
+def acktr_params_to_reference(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """ACKTR's parameter dict (or a dict shaped like it: momentum) -> the
+    reference's, float32 numpy."""
+    out = {}
+    for name, value in params.items():
+        x = value.detach().to("cpu", torch.float32).numpy()
+        out[name] = np.ascontiguousarray(x.transpose(2, 3, 1, 0) if name in _ACKTR_CONVS else x)
+    return out
+
+
+def acktr_params_from_reference(params: dict) -> Dict[str, torch.Tensor]:
+    """The reference's ACKTR parameter dict -> the port's (CPU float32)."""
+    out = {}
+    for name, value in params.items():
+        x = np.asarray(value, np.float32)
+        out[name] = torch.tensor(np.ascontiguousarray(
+            x.transpose(3, 2, 0, 1) if name in _ACKTR_CONVS else x))
+    return out
+
+
 def torso_kind_of(tree: dict) -> str:
     """``mlp`` or ``cnn`` from the torso module name in a Flax tree."""
     for kind, name in _TORSO_NAMES.items():
         if name in tree["params"]:
             return kind
     raise ValueError(f"no known torso in {sorted(tree['params'])}")
-
-
-def load_jax_checkpoint(path: str) -> dict:
-    """A reference (or port) agent pickle, with its Flax ``params`` also as
-    a port ``state_dict`` under ``"state_dict"``. Only load files this
-    program or the reference wrote: unpickling runs code."""
-    with open(path, "rb") as f:
-        payload = pickle.load(f)
-    payload["state_dict"] = flax_to_state_dict(
-        payload["params"], torso_kind_of(payload["params"]))
-    return payload
 
 
 def _srl_to_flax(name: str, x: np.ndarray) -> np.ndarray:
@@ -236,6 +324,9 @@ OPTAX_STATES = {
 # (``srl_tpu.envs.<module>.<Name>State``).
 REFERENCE_DATACLASSES = (
     "srl_tpu.agents.ppo.PPOState",
+    "srl_tpu.agents.recurrent_ppo.RecurrentPPOState",
+    "srl_tpu.agents.acktr.ACKTRState",
+    "srl_tpu.agents.acktr.RecurrentACKTRState",
     "srl_tpu.core.env.VecEnvState",
     "srl_tpu.core.normalize.RunningNorm",
     "srl_tpu.core.frame_stack.FrameStackState",

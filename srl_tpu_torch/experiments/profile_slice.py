@@ -1,29 +1,42 @@
-"""Where the time of one PPO2 update goes on the card, for a main path of
-the port: by default KukaButtonGymEnv-v0 from raw pixels (render scale 2,
-coarse observations, the Nature CNN); ``--env MobileRobotGymEnv-v0`` gives
-the MobileRobot pixel run (224x224 frames from the sprite compositor); a
-learned ``--srl-model`` with ``--srl-model-path`` profiles PPO2 on that
-encoder's states (``SRLEncodedEnv``: render, then encode); ``--mixed-envs
-KukaButtonGymEnv-v0 OmnirobotEnv-v0`` the mixed pixel batch (Kuka traced at
-render scale 2 and upsampled to 224x224, Omnirobot rasterised at 224x224),
-with the rollout's env and render time split by family.
+"""Where the time of one update goes on the card, for a main path of the
+port: by default PPO2 on KukaButtonGymEnv-v0 from raw pixels (render scale
+2, coarse observations, the Nature CNN); ``--env MobileRobotGymEnv-v0``
+gives the MobileRobot pixel run (224x224 frames from the sprite
+compositor); a learned ``--srl-model`` with ``--srl-model-path`` profiles
+PPO2 on that encoder's states (``SRLEncodedEnv``: render, then encode);
+``--mixed-envs KukaButtonGymEnv-v0 OmnirobotEnv-v0`` the mixed pixel batch
+(Kuka traced at render scale 2 and upsampled to 224x224, Omnirobot
+rasterised at 224x224), with the rollout's env and render time split by
+family. ``--algo`` and ``--policy`` pick another agent (``--algo ppo2
+--policy cnnlstm``: the recurrent PPO2 at its tuned 609 steps; ``--algo
+a2c --policy cnnlnlstm``; ``--algo acktr [--policy cnnlstm]``), the
+agent's own defaults otherwise.
 
     python -m srl_tpu_torch.experiments.profile_slice [--env ENV_ID]
         [--srl-model NAME [--srl-model-path CHECKPOINT]] [--num-envs 256]
-        [--mixed-envs ENV_ID ...]
+        [--mixed-envs ENV_ID ...] [--algo ppo2|a2c|acktr] [--policy KIND]
 
 After one warm-up update it reports, on the host clock with the device
 synchronised around each part:
 
-* the wall time of an update and of its two halves, the 128-step rollout and
-  the 4 x 4 minibatch epochs;
+* the wall time of an update and of its two halves, the rollout and the
+  rest (the epochs, or the agent's update);
 * a rollout step split into its parts (env dynamics, render (with the
   encoder, for an SRL model), policy, action sampling; env dynamics and
-  render per family of a mixed batch), each timed over 128 steps with a
-  synchronise between parts (auto-resets left out);
+  render per family of a mixed batch), each timed over the rollout's steps
+  with a synchronise between parts (auto-resets left out);
+* the update split into its parts, each forward with its backward: for a
+  recurrent policy the batched torso, the cell's loop over T, and the
+  heads, loss and optimizer step, for one minibatch (PPO2; times
+  nminibatches x noptepochs for an update) or the whole segment (A2C); for
+  ACKTR the loss backward, the Fisher G backward, the factor EMAs, the
+  inverses (the preconditioning) and the trust-region momentum step;
 * under ``torch.profiler``, one more update: device time by kernel (top 12),
   kernel launches per update and per env step, and the device's busy and
-  idle share of the update's wall time.
+  idle share of the update's wall time (the recurrent PPO2's update is too
+  long to trace whole: its first 128 rollout steps and one minibatch are
+  traced and scaled to the update's 609 steps and 32 minibatches); and the
+  peak device memory.
 
 The last line is one JSON object with the same numbers. Needs a card.
 """
@@ -35,11 +48,18 @@ import subprocess
 import time
 
 import torch
+from torch.profiler import ProfilerActivity, profile
 
-from srl_tpu_torch.agents.ppo import PPO2
+from srl_tpu_torch.agents.acktr import ACKTR
+from srl_tpu_torch.agents.base import RecurrentActing
+from srl_tpu_torch.agents.common import (collect_recurrent_rollout, collect_rollout,
+                                         compute_gae)
+from srl_tpu_torch.agents.recurrent_ppo import RecurrentPolicyMixin, RecurrentPPO2
+from srl_tpu_torch.agents.registry import resolve_policy_class
 from srl_tpu_torch.core.mixed_env import MixedEnv, MixedVecEnv
 from srl_tpu_torch.envs.registry import registered_env
 from srl_tpu_torch.experiments.train import make_with_options
+from srl_tpu_torch.models.recurrent import mask_carry
 from srl_tpu_torch.srl.registry import registered_srl
 
 
@@ -51,7 +71,146 @@ def _sync_time(fn):
     return out, time.perf_counter() - t0
 
 
-def rollout_split(agent: PPO2, state, gen, n_steps: int) -> dict:
+# The longest rollout traced whole (the Kuka step launches 700-950
+# kernels, so 128 steps of it is about 100k launches).
+PROFILE_STEPS = 128
+
+
+def profiled(fn) -> tuple:
+    """(seconds, device busy microseconds, kernel launches, {kernel: device
+    microseconds}) of ``fn`` under ``torch.profiler``."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, seconds = _sync_time(fn)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+    return (seconds, sum(dev_us(e) for e in kernels), sum(e.count for e in kernels),
+            {e.key: dev_us(e) for e in kernels})
+
+
+def minibatch_step(agent, state, minibatch):
+    """One RecurrentPPO2 minibatch: the loss, its backward and the
+    optimizer step (on copies)."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
+    loss, _ = agent._loss(leaves, minibatch, agent.config.cliprange)
+    grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    params = {k: v.detach().clone() for k, v in state.params.items()}
+    with torch.no_grad():
+        agent.optimizer_step_(params, grads, agent.opt_init(params))
+
+
+def acting(agent, state):
+    """obs -> the distribution the agent acts from, an lstm policy's carry
+    carried from call to call."""
+    if not isinstance(agent, RecurrentActing):
+        return lambda obs: agent.apply(state.params, obs)[0]
+    context = [state.lstm_state]
+
+    def act(obs):
+        dist, _, context[0] = agent._policy_step(state.params, obs, context[0], state.done)
+        return dist
+
+    return act
+
+
+def segment(agent, state, gen):
+    """The agent's rollout of ``n_steps`` from ``state``."""
+    if hasattr(agent, "rollout"):
+        return agent.rollout(state, gen)
+    return collect_rollout(agent.vec_env, lambda obs: agent.apply(state.params, obs),
+                           state.vstate, state.obs, state.obs_norm, gen, agent.config.n_steps)
+
+
+def recurrent_segment(agent, state, gen):
+    """A recurrent agent's segment as its update takes it: (data, per
+    update): RecurrentPPO2's epochs' data and its minibatches per update,
+    or RecurrentA2C's whole-segment batch and 1."""
+    _, _, _, _, _, batch, last_value = agent.rollout(state, gen)
+    cfg = agent.config
+    if isinstance(agent, RecurrentPPO2):
+        advantages, returns = compute_gae(batch.rewards, batch.values, batch.dones,
+                                          last_value, cfg.gamma, cfg.lam)
+        return ((batch.obs, batch.done_in, batch.carry0, batch.actions, batch.log_probs,
+                 batch.values, advantages, returns), cfg.nminibatches * cfg.noptepochs)
+    advantages, returns = compute_gae(batch.rewards, batch.values, batch.dones, last_value,
+                                      cfg.gamma, 1.0)
+    return ((batch.obs, batch.done_in, batch.carry0), batch.actions, advantages, returns), 1
+
+
+def first_minibatch(agent, data):
+    """RecurrentPPO2's first minibatch of ``data`` (whole env columns)."""
+    size = agent.num_envs // agent.config.nminibatches
+    return agent._minibatch(data, torch.arange(size, device=data[0].device))
+
+
+def recurrent_update_split(agent, state, gen) -> dict:
+    """Seconds of each part of a recurrent policy's loss, each forward with
+    its backward (the graph cut between parts): the batched torso, the cell
+    over T, the heads and loss, and the optimizer step. RecurrentPPO2: its
+    first minibatch (whole env columns), and the same times the number of
+    minibatches an update; RecurrentA2C: the whole segment."""
+    data, per_update = recurrent_segment(agent, state, gen)
+    ppo = isinstance(agent, RecurrentPPO2)
+    (obs, done, carry), *rest = first_minibatch(agent, data) if ppo else data
+    if ppo:
+        rest.append(agent.config.cliprange)
+    net = agent.policy
+    net.load_state_dict(state.params)
+    t, b = done.shape
+    parts = {}
+    x, parts["torso_fwd"] = _sync_time(lambda: net.torso(obs.reshape((t * b,) + obs.shape[2:])))
+    x_in = x.detach().requires_grad_(True)
+
+    def cell_loop():
+        proj, c, hs = net.cell.project_input(x_in).reshape(t, b, -1), carry, []
+        for k in range(t):
+            c = net.cell.step(proj[k], mask_carry(c, done[k]))
+            hs.append(c[1])
+        return torch.stack(hs)
+
+    hs, parts["cell_fwd"] = _sync_time(cell_loop)
+    h_in = hs.detach().requires_grad_(True)
+    (loss, _), parts["heads_loss_fwd"] = _sync_time(lambda: agent._objective(*net._heads(h_in),
+                                                                             *rest))
+    _, parts["heads_loss_bwd"] = _sync_time(lambda: loss.backward())
+    _, parts["cell_bwd"] = _sync_time(lambda: hs.backward(h_in.grad))
+    _, parts["torso_bwd"] = _sync_time(lambda: x.backward(x_in.grad))
+    params = {k: v.detach().clone() for k, v in net.named_parameters()}
+    grads = {k: v.grad for k, v in net.named_parameters()}
+    opt_state = agent.opt_init(params)
+    _, parts["optimizer"] = _sync_time(lambda: agent.optimizer_step_(params, grads, opt_state))
+    split = {"torso": parts["torso_fwd"] + parts["torso_bwd"],
+             "cell_loop": parts["cell_fwd"] + parts["cell_bwd"],
+             "heads_loss_optimizer": (parts["heads_loss_fwd"] + parts["heads_loss_bwd"]
+                                      + parts["optimizer"])}
+    return {"per": "minibatch" if ppo else "update", "minibatches_per_update": per_update,
+            "T": t, "frames": t * b, **split,
+            **({f"{k}_per_update": v * per_update for k, v in split.items()} if ppo else {}),
+            "parts": parts}
+
+
+def acktr_update_split(agent, state, gen) -> dict:
+    """Seconds of each part of a K-FAC update: the loss forward and backward
+    (and the factors' input rows), the Fisher G's forward and backward, the
+    factor EMAs, the inverses (the preconditioning) and the trust-region
+    momentum step."""
+    _, data, _ = agent.rollout(state, gen)
+    (loss, grads, acts, samples), t_loss = _sync_time(
+        lambda: agent.loss_and_grads(state.params, data))
+    fisher, t_fisher = _sync_time(lambda: agent.fisher_G(state.params, samples, gen))
+    (kfac_A, kfac_G), t_ema = _sync_time(
+        lambda: agent.update_factors(state.kfac_A, state.kfac_G, acts, fisher))
+    precond, t_inv = _sync_time(
+        lambda: agent.precondition(grads, kfac_A, kfac_G, state.update_idx))
+    (_, _, eta), t_step = _sync_time(lambda: agent.kfac_step(
+        state.params, state.momentum, grads, precond, agent.learning_rate(state.update_idx)))
+    return {"per": "update", "loss_backward": t_loss, "fisher_G_backward": t_fisher,
+            "factor_ema": t_ema, "inverses": t_inv, "momentum_step": t_step,
+            "eta": float(eta),
+            "factor_sizes": {w: list(a.shape) for w, a in kfac_A.items()}}
+
+
+def rollout_split(agent, state, gen, n_steps: int) -> dict:
     """Seconds per part over ``n_steps`` steps, synchronising between parts;
     env dynamics and render per family of a mixed batch."""
     vec = agent.vec_env
@@ -65,9 +224,10 @@ def rollout_split(agent: PPO2, state, gen, n_steps: int) -> dict:
         env_states = [state.vstate.env_state]
     parts = dict(policy=0.0, sample=0.0)
     obs = state.obs
+    act = acting(agent, state)
     with torch.no_grad():
         for _ in range(n_steps):
-            (dist, _), t = _sync_time(lambda: agent.apply(state.params, obs))
+            dist, t = _sync_time(lambda: act(obs))
             parts["policy"] += t
             action, t = _sync_time(lambda: dist.sample(gen))
             parts["sample"] += t
@@ -98,6 +258,10 @@ def main(argv=None) -> dict:
     parser.add_argument("--mixed-envs", nargs="+", default=None, metavar="ENV_ID",
                         choices=list(registered_env.keys()),
                         help="profile one learner on a batch of these env families")
+    parser.add_argument("--algo", default="ppo2", choices=["ppo2", "a2c", "acktr"])
+    parser.add_argument("--policy", default="auto",
+                        choices=["auto", "mlp", "cnn", "lstm", "lnlstm", "cnnlstm",
+                                 "cnnlnlstm"])
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_slice measures the card and needs CUDA")
@@ -122,7 +286,9 @@ def main(argv=None) -> dict:
                        oob_action="modulo")
     else:
         env = wrap(make_with_options(args.env, options))
-    agent = PPO2(env=env, num_envs=args.num_envs, device="cuda")
+    kwargs = {} if args.policy == "auto" else {"policy": args.policy}
+    agent = resolve_policy_class(args.algo, args.policy)(
+        env=env, num_envs=args.num_envs, device="cuda", **kwargs)
     agent.n_updates = 3
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     state = agent.init_state(gen, args.seed)
@@ -130,52 +296,88 @@ def main(argv=None) -> dict:
 
     (state, _), t_update = _sync_time(lambda: agent.train_iteration(state, gen))
     n_steps = agent.config.n_steps
-    from srl_tpu_torch.agents.common import collect_rollout
-
-    policy = lambda obs: agent.apply(state.params, obs)
-    _, t_rollout = _sync_time(lambda: collect_rollout(
-        agent.vec_env, policy, state.vstate, state.obs, state.obs_norm, gen, n_steps))
+    _, t_rollout = _sync_time(lambda: segment(agent, state, gen))
     split = rollout_split(agent, state, gen, n_steps)
+    update_split = None
+    if isinstance(agent, ACKTR):
+        update_split = acktr_update_split(agent, state, gen)
+    elif isinstance(agent, RecurrentPolicyMixin):
+        # The first call's backward from an explicit gradient imports
+        # modules (seconds): report the second.
+        recurrent_update_split(agent, state, gen)
+        update_split = recurrent_update_split(agent, state, gen)
 
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        (state, _), t_prof = _sync_time(lambda: agent.train_iteration(state, gen))
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = lambda e: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-    busy_us = sum(dev_us(e) for e in kernels)
-    launches = sum(e.count for e in kernels)
-    top = sorted(kernels, key=dev_us, reverse=True)[:12]
+    if isinstance(agent, RecurrentPPO2):
+        # Its update (32 minibatches, each a 609-step cell loop) and its
+        # 609-step rollout launch too many kernels to trace whole: trace the
+        # first PROFILE_STEPS rollout steps and one minibatch, and scale
+        # each window to the update.
+        data, per_update = recurrent_segment(agent, state, gen)
+        steps = min(n_steps, PROFILE_STEPS)
+        windows = [
+            (profiled(lambda: collect_recurrent_rollout(
+                agent.vec_env, lambda o, c, d: agent.apply(state.params, o, c, d),
+                state.vstate, state.obs, state.done, state.lstm_state, state.obs_norm, gen,
+                steps)), n_steps / steps),
+            (profiled(lambda: minibatch_step(agent, state, first_minibatch(agent, data))),
+             per_update)]
+    else:
+        windows = [(profiled(lambda: agent.train_iteration(state, gen)), 1.0)]
+    t_prof = sum(w[0] * k for w, k in windows)
+    busy_us = sum(w[1] * k for w, k in windows)
+    launches = sum(w[2] * k for w, k in windows)
+    by_kernel = {}
+    for (_, _, _, kernels), k in windows:
+        for name, us in kernels.items():
+            by_kernel[name] = by_kernel.get(name, 0.0) + us * k
+    top = sorted(by_kernel.items(), key=lambda kv: kv[1], reverse=True)[:12]
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     result = {
         "card": smi.splitlines()[0],
+        "algo": args.algo,
+        "policy": getattr(agent, "policy_kind", args.policy),
+        "n_steps": n_steps,
         "env": args.mixed_envs or args.env,
         "srl_model": args.srl_model,
         "num_envs": args.num_envs,
         "update_s": t_update,
         "rollout_s": t_rollout,
         "epochs_s": t_update - t_rollout,
+        "update_split_s": update_split,
         "env_steps_per_s": n_steps * args.num_envs / t_update,
         "rollout_split_s": split,
         "profiled_update_s": t_prof,
+        "profiled_windows": [{"seconds": w[0], "busy_s": w[1] / 1e6, "launches": w[2],
+                              "times": k} for w, k in windows],
         "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1.0 - busy_us / 1e6 / t_prof,
         "kernel_launches_per_update": launches,
         "kernel_launches_per_env_step": launches / n_steps,
-        "top_kernels_ms": {e.key[:80]: dev_us(e) / 1e3 for e in top},
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "top_kernels_ms": {name[:80]: us / 1e3 for name, us in top},
     }
-    print(f"card: {result['card']}; {result['env']} {args.srl_model}, {args.num_envs} envs")
-    print(f"update {t_update:.3f} s = rollout {t_rollout:.3f} s + epochs "
+    print(f"card: {result['card']}; {args.algo} {result['policy']} on {result['env']} "
+          f"{args.srl_model}, {args.num_envs} envs, {n_steps} steps")
+    print(f"update {t_update:.3f} s = rollout {t_rollout:.3f} s + update "
           f"{t_update - t_rollout:.3f} s; {result['env_steps_per_s']:.0f} env-steps/s")
-    print("rollout split (s over 128 steps, synchronised): "
+    print(f"rollout split (s over {n_steps} steps, synchronised): "
           + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    if update_split is not None:
+        print("update split (s, synchronised): " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else
+            f"{k} " + (", ".join(f"{a} {b:.4f}" for a, b in v.items())
+                       if k == "parts" else f"{v}")
+            for k, v in update_split.items()))
+    if len(windows) > 1:
+        print("profiled windows (s, busy s, launches, times in an update): " + "; ".join(
+            f"{w[0]:.3f}, {w[1] / 1e6:.3f}, {w[2]}, x{k:g}" for w, k in windows))
     print(f"profiled update {t_prof:.3f} s: device busy {busy_us / 1e6:.3f} s, idle "
           f"share {result['device_idle_share']:.3f}, {launches} kernel launches "
-          f"({launches / n_steps:.1f} per env step)")
+          f"({launches / n_steps:.1f} per env step); peak device memory "
+          f"{result['peak_memory_gb']:.1f} GiB")
     for name, ms in result["top_kernels_ms"].items():
         print(f"  {ms:9.2f} ms  {name}")
     print(json.dumps(result))

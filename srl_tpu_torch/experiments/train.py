@@ -1,7 +1,9 @@
 """Training entry point (counterpart of srl_tpu/experiments/train.py).
 
-The reference CLI for the agents ported so far (``--algo ppo2|ppo1|a2c|trpo``,
-from ``agents/registry``) on every registered env (Kuka, MobileRobot,
+The reference CLI for the agents ported so far (``--algo
+ppo2|ppo1|a2c|trpo|acktr`` from ``agents/registry``, and ``--policy
+lstm|lnlstm|cnnlstm|cnnlnlstm`` for ppo2, a2c and acktr, routed to the
+Recurrent* agents by ``resolve_policy_class``) on every registered env (Kuka, MobileRobot,
 Omnirobot, CarRacing) with every ``--srl-model`` of the registry, optionally
 with ``--num-stack`` frames, or on a mixed batch of env families
 (``--mixed-envs``: one learner over contiguous per-family slices,
@@ -24,11 +26,15 @@ directory has the reference's layout, ``{log-dir}/{env}/{srl_model}/{algo}/
 the reference's agents load. ``--checkpoint-interval N`` writes the whole
 training state every N updates (``checkpoint.pkl``, readable by either
 package), and ``--resume LOG_DIR`` continues that run in place (PPO2 and
-PPO1, as in the reference). ``--load-rl-model-path`` trains on from a saved
-policy's parameters and normalizer, with a fresh optimizer and env (the
-reference's run discards the loaded weights: ROADMAP Queue C). Not ported
-yet, and refused with a message: the recurrent ``--policy`` kinds and the
-other algos. ``--port`` and ``--no-vis`` are accepted and draw nothing.
+PPO1, as in the reference; the other agents' ``learn`` takes no state to
+resume from, and the CLI refuses with the reference's message).
+``--load-rl-model-path`` trains on from a saved policy's parameters and
+normalizer, with a fresh optimizer and env (the reference's run discards
+the loaded weights: ROADMAP Queue C). The default config is the resolved
+class's (the recurrent PPO2's is ``lstm_ppo_config``); ``--hyperparam``
+parses against the registered class, as in the reference. Not ported yet,
+and refused with a message: the other algos. ``--port`` and ``--no-vis``
+are accepted and draw nothing.
 
 Usage (the README's pixel run, the quickstart, an encoder trained by
 ``srl_tpu_torch.experiments.train_srl``, a resume):
@@ -159,9 +165,6 @@ def build_parser(argv=None) -> argparse.ArgumentParser:
     if args.algo not in registered_rl:
         parser.error(f"--algo {args.algo} is not ported to srl_tpu_torch yet; use "
                      "srl_tpu.experiments.train for it")
-    if "lstm" in args.policy:
-        parser.error(f"--policy {args.policy} is not ported to srl_tpu_torch yet "
-                     "(the recurrent agents); use srl_tpu.experiments.train for it")
     registered_rl[args.algo][0](device="cpu").customArguments(parser)
     return parser
 
@@ -388,8 +391,13 @@ def main(argv=None) -> str:
     else:
         assert ActionType.DISCRETE in action_types, (
             f"Error: {args.algo} does not support discrete actions")
-    algo_class = resolve_policy_class(args.algo, args.policy)
+    # ``--hyperparam`` parses against the registered class, as in the
+    # reference (the recurrent PPO2 declares no table of its own).
     hyperparams = algo_class.parserHyperParam(args.hyperparam)
+    algo_class = resolve_policy_class(args.algo, args.policy)
+    if resume_state is not None and "initial_state" not in inspect.signature(
+            algo_class.learn).parameters:
+        raise ValueError(f"--resume is not supported for algo '{args.algo}' yet")
 
     env = build_env(args, device)
     log_dir = args.resume or make_run_dir(args)
@@ -409,8 +417,6 @@ def main(argv=None) -> str:
     total = int(args.num_timesteps * 1.1)
     learn_params = inspect.signature(agent.learn).parameters
     if resume_state is not None:
-        if "initial_state" not in learn_params:
-            raise ValueError(f"--resume is not supported for algo '{args.algo}' yet")
         total = max(0, total - int(resume_meta.get("num_timesteps", 0)))
         learn_kwargs["initial_state"] = resume_state
     if args.updates_per_call > 1 and "updates_per_call" in learn_params:

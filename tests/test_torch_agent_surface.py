@@ -8,7 +8,8 @@
   (continuous actions, the Gaussian's mean, and probabilities within rtol
   1e-6).
 * ``getOptParam`` tables, ``parserHyperParam`` values and its
-  AssertionErrors, the registry's entries and the enums' values: equal.
+  AssertionErrors, the registry's entries (ACKTR's too), the recurrent
+  policies' routes and the enums' values: equal.
 * The default configs of the four agents: equal.
 * ``utils.logging``, ``utils.monitor`` (``MonitorWriter(append=True)``,
   ``load_csv``, ``compute_mean_reward``) and ``RunningNorm.save``/``load``:
@@ -27,6 +28,7 @@ from srl_tpu.agents.a2c import A2C as JA2C
 from srl_tpu.agents.ppo import PPO2 as JPPO2
 from srl_tpu.agents.ppo1 import PPO1 as JPPO1
 from srl_tpu.agents.registry import registered_rl as jregistry
+from srl_tpu.agents.registry import resolve_policy_class as jresolve_policy_class
 from srl_tpu.agents.trpo import TRPO as JTRPO
 from srl_tpu.core.normalize import RunningNorm as JNorm
 from srl_tpu.envs.mobile_robot import MobileRobotEnv as JMobile
@@ -105,7 +107,7 @@ def test_opt_param_tables_and_parsing(algo):
 def test_registry_and_enums_match_reference():
     assert {e.name: e.value for e in AlgoType} == {e.name: e.value for e in JAlgoType}
     assert {e.name: e.value for e in ActionType} == {e.name: e.value for e in JActionType}
-    assert sorted(registered_rl.keys()) == ["a2c", "ppo1", "ppo2", "trpo"]
+    assert sorted(registered_rl.keys()) == ["a2c", "acktr", "ppo1", "ppo2", "trpo"]
     for name in registered_rl:
         cls, algo_type, actions = registered_rl[name]
         jcls, jtype, jactions = jregistry[name]
@@ -114,8 +116,19 @@ def test_registry_and_enums_match_reference():
         assert [a.value for a in actions] == [a.value for a in jactions]
         assert resolve_policy_class(name, "mlp") is cls
         assert cls.SAVE_INTERVAL == jcls.SAVE_INTERVAL
+    # The recurrent policies route as in the reference; acer's is not ported.
+    for algo in ("ppo2", "a2c", "acktr"):
+        for policy in ("lstm", "lnlstm", "cnnlstm", "cnnlnlstm"):
+            assert (resolve_policy_class(algo, policy).__name__
+                    == jresolve_policy_class(algo, policy).__name__)
+    for algo in ("trpo", "ppo1"):
+        with pytest.raises(AssertionError) as ref_err:
+            jresolve_policy_class(algo, "lstm")
+        with pytest.raises(AssertionError) as err:
+            resolve_policy_class(algo, "lstm")
+        assert str(err.value) == str(ref_err.value)
     with pytest.raises(NotImplementedError, match="not ported"):
-        resolve_policy_class("ppo2", "cnnlstm")
+        resolve_policy_class("acer", "lstm")
 
 
 @pytest.mark.parametrize("algo", list(ALGOS))

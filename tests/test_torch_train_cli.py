@@ -63,7 +63,8 @@ def test_reference_loads_the_port_checkpoint(run_dir):
     assert jagent.policy.torso == "cnn" and jagent.config.n_steps == 128
 
 
-@pytest.mark.parametrize("flags", [["--policy", "lstm"], ["--policy", "cnnlstm"],
+@pytest.mark.parametrize("flags", [["--algo", "acer"], ["--algo", "deepq"],
+                                   ["--algo", "acer", "--policy", "lstm"],
                                    ["--algo", "sac"]], ids=" ".join)
 def test_cli_rejects_flags_not_ported(flags, capsys):
     with pytest.raises(SystemExit):

@@ -1,7 +1,9 @@
 """The port's training CLI beyond PPO2 on the CPU (MobileRobot ground
-truth, 4 envs): the other agents, ``--hyperparam``, checkpoint and resume
-(a mirror of tests/test_train_cli.py::test_checkpoint_resume), and
-fine-tuning with ``--load-rl-model-path``.
+truth, 4 envs): the other agents (ACKTR and the recurrent policies too),
+``--hyperparam``, checkpoint and resume (a mirror of
+tests/test_train_cli.py::test_checkpoint_resume) and its refusal for the
+agents whose ``learn`` takes no state, and fine-tuning with
+``--load-rl-model-path``.
 
 Fine-tuning at ``learning_rate:0`` keeps the loaded parameters bit for bit
 in the port, which starts ``learn`` from them. The reference's run does not
@@ -18,6 +20,7 @@ import pytest
 import torch
 
 from srl_tpu.agents.a2c import A2C as JA2C
+from srl_tpu.agents.registry import resolve_policy_class as jresolve_policy_class
 from srl_tpu.envs.mobile_robot import MobileRobotEnv as JMobile
 from srl_tpu.experiments import train as jtrain
 from srl_tpu_torch.agents.base import BaseRLAgent
@@ -137,3 +140,50 @@ def test_cli_run_flags_reach_the_env_and_agent(tmp_path):
     with open(os.path.join(log_dir, "args.json")) as f:
         stored = json.load(f)
     assert stored["min_episodes_save"] == 1 and stored["episode_window"] == 5
+
+
+@pytest.mark.parametrize("algo, policy, metric, name", [
+    ("ppo2", "lstm", "loss", "ppo2_lstm"), ("a2c", "lnlstm", "pg_loss", "a2c_lstm"),
+    ("acktr", "lstm", "eta", "acktr_lstm"), ("acktr", "auto", "eta", "acktr")])
+def test_cli_trains_acktr_and_the_recurrent_policies(algo, policy, metric, name, tmp_path):
+    # The recurrent PPO2's --hyperparam parses against PPO2's table, as in
+    # the reference, over its own default config (lstm_ppo_config).
+    extra = ["--hyperparam", "n_steps:16"] if algo == "ppo2" else []
+    log_dir = run(tmp_path, "--algo", algo, "--policy", policy, "--num-timesteps", "200",
+                  *extra)
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        lines = [json.loads(x) for x in f]
+    assert len(lines) >= 2 and all(np.isfinite(e[metric]) for e in lines)
+    payload = final_model(log_dir, algo)
+    assert payload["name"] == name
+    if algo == "ppo2":
+        assert payload["config"]["n_steps"] == 16 and payload["config"]["noptepochs"] == 8
+    # The reference reads the port's model as the class it trains.
+    jcls = jresolve_policy_class(algo, policy)
+    jagent = jcls.load(os.path.join(log_dir, f"{algo}_final_model.pkl"), env=JMobile())
+    assert type(jagent).__name__ == jcls.__name__
+
+
+@pytest.mark.parametrize("algo, policy", [("ppo2", "lstm"), ("acktr", "auto")])
+def test_cli_refuses_resume_where_learn_takes_no_state(algo, policy, tmp_path):
+    extra = ["--hyperparam", "n_steps:16"] if algo == "ppo2" else []
+    log_dir = run(tmp_path, "--algo", algo, "--policy", policy, "--num-timesteps", "100",
+                  "--checkpoint-interval", "1", *extra)
+    with open(os.path.join(log_dir, "args.json")) as f:
+        stored = f.read()
+    with pytest.raises(ValueError, match=f"--resume is not supported for algo '{algo}' yet"):
+        train.main(["--resume", log_dir, "--device", "cpu"])
+    with open(os.path.join(log_dir, "args.json")) as f:
+        assert f.read() == stored
+
+
+@pytest.mark.parametrize("algo, hyper", [("ppo2", ["n_steps:16"]), ("acktr", [])])
+def test_recurrent_fine_tune_at_lr_zero_keeps_the_weights(algo, hyper, tmp_path):
+    common = ["--algo", algo, "--policy", "lstm", "--num-timesteps", "100"]
+    first = run(tmp_path / "a", *common, *(["--hyperparam", *hyper] if hyper else []))
+    path = os.path.join(first, f"{algo}_final_model.pkl")
+    tuned = run(tmp_path / "b", *common, "--load-rl-model-path", path, "--seed", "4",
+                "--hyperparam", *hyper, "learning_rate:0")
+    leaves = lambda d: [np.asarray(x) for x in _leaves(d["params"])]
+    for a, b in zip(leaves(final_model(tuned, algo)), leaves(final_model(first, algo))):
+        np.testing.assert_array_equal(a, b)
