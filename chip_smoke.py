@@ -68,7 +68,21 @@ Phases, each reported on its own lines; any failure exits non-zero:
    path (5 steps, 2 updates); 8c, ACKTR with the CNN on MobileRobot 224x224
    pixels (render2d; 20 steps, 2 updates: the 2305x2305 fc factor and its
    inverse), its ``eta`` printed; 8d, ACKTR with ``--policy cnnlstm`` on the
-   Kuka pixel path (2 updates).
+   Kuka pixel path (2 updates);
+9. the replay agents at the reference's widths (256 envs, each agent's
+   default config), through the training CLI with the counts set to 0 just
+   before each run: 9a, ACER with the Nature CNN on the Kuka pixel path for
+   6 iterations of 20 x 256 steps (render3d exactly 121 launches; 4 replay
+   updates in each of iterations 4-6 from its 10.1 GB segment store; every
+   logged loss finite), its saved ``acer`` model reloaded and acting as the
+   trained agent does on two steps of 8 Kuka frames; 9b, RecurrentACER with
+   ``--policy cnnlstm`` there for 5 iterations (render3d exactly 101; replays
+   in iterations 4-5), its ``acer_lstm`` model reloaded and acting as the
+   trained agent with a ``dones`` mask; 9c, DQN on MobileRobot 224x224
+   pixels for 2 chunks of 64 x 256 steps (render2d exactly 129 launches, 32
+   TD updates, a target copy wherever the global step modulo 500 is below
+   256), its ``deepq`` model reloaded and acting greedily as the trained
+   agent.
 
 The line before the last is a JSON object with each kernel's numbers, the
 last ``{"ok": true, "device": {...}}``. Needs the card and the rest of the
@@ -731,13 +745,34 @@ ACKTR_ARGS = with_flags(MOBILE_ARGS, algo="acktr", num_timesteps=9400)
 LSTM_ACKTR_ARGS = with_flags(KUKA_ARGS, algo="acktr", policy="cnnlstm", num_timesteps=9400)
 
 
+def acts_alike(torch, saved, trained, env, what, dones_seq=(None, None)) -> list:
+    """Deterministic actions of ``saved`` and ``trained`` on two steps of 8
+    envs of ``env`` (each step's ``dones`` from ``dones_seq``), equal."""
+    from srl_tpu_torch.core.env import VecEnv
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    vec = VecEnv(env, 8)
+    vstate, obs = vec.reset(gen)
+    acts = []
+    for dones in dones_seq:
+        frames = obs.cpu().numpy()
+        a, b = (agent.getAction(frames, dones, deterministic=True)
+                for agent in (saved, trained))
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{what}: the reloaded model acts {a.tolist()}, the "
+                                 f"trained agent {b.tolist()}")
+        acts.append(a.tolist())
+        vstate, tr = vec.step(vstate, torch.as_tensor(a, device="cuda"), gen)
+        obs = tr.obs
+    return acts
+
+
 def recurrent_agents(torch, train, counters) -> dict:
     """Step 8: the recurrent PPO2 (8a, the slice's main path), A2C (8b) and
     ACKTR (8d) on the Kuka pixel path, ACKTR with the CNN on MobileRobot
     pixels (8c)."""
     from srl_tpu_torch.agents.base import BaseRLAgent
     from srl_tpu_torch.agents.recurrent_ppo import RecurrentPPO2
-    from srl_tpu_torch.core.env import VecEnv
 
     out = {}
     with tempfile.TemporaryDirectory() as root:
@@ -757,20 +792,8 @@ def recurrent_agents(torch, train, counters) -> dict:
         ckpt, _ = BaseRLAgent.load_checkpoint(os.path.join(log_dir, "checkpoint.pkl"))
         trained = RecurrentPPO2(env=env, num_envs=256, policy="cnnlstm", device="cuda")
         trained.state = trained.loaded_state(trained._state_dict(ckpt.params), None)
-        gen = torch.Generator(device="cuda").manual_seed(1)
-        vec = VecEnv(env, 8)
-        vstate, obs = vec.reset(gen)
-        acts = []
-        for dones in (None, np.array([True] + [False] * 7)):
-            frames = obs.cpu().numpy()
-            a, b = (agent.getAction(frames, dones, deterministic=True)
-                    for agent in (saved, trained))
-            if not np.array_equal(a, b):
-                raise AssertionError(f"8a: the reloaded ppo2_lstm model acts {a.tolist()}, "
-                                     f"the trained agent {b.tolist()}")
-            acts.append(a.tolist())
-            vstate, tr = vec.step(vstate, torch.as_tensor(a, device="cuda"), gen)
-            obs = tr.obs
+        acts = acts_alike(torch, saved, trained, env, "8a",
+                          (None, np.array([True] + [False] * 7)))
         name = BaseRLAgent._load_pickle(os.path.join(log_dir, "ppo2_final_model.pkl"))["name"]
         log(f"[lstm] 8a: the saved '{name}' model reloads and acts as the trained agent on "
             f"two steps of 8 Kuka frames: {acts}; metrics loss {entries[0]['loss']:.5g}, "
@@ -789,6 +812,138 @@ def recurrent_agents(torch, train, counters) -> dict:
         if "eta" in keys:
             log(f"[acktr] {step}: eta by update " + ", ".join(f"{e['eta']:.6g}" for e in entries))
         out[step.split()[0]] = launches[kernel]
+    return out
+
+
+# Step 9's runs at the reference's widths, 256 envs, each agent's default
+# config: ACER for int(28,000 * 1.1) // (20 * 256) = 6 iterations,
+# RecurrentACER (cnnlstm) for 5, DQN for 2 chunks of 64 x 256 steps (while
+# fewer than int(20,000 * 1.1) steps are done).
+ACER_ARGS = with_flags(KUKA_ARGS, algo="acer", num_timesteps=28000)
+LSTM_ACER_ARGS = with_flags(KUKA_ARGS, algo="acer", policy="cnnlstm", num_timesteps=23500)
+DQN_ARGS = with_flags(MOBILE_ARGS, algo="deepq", num_timesteps=20000)
+ACER_KEYS = ("loss_policy", "loss_q", "entropy", "mean_reward_per_step")
+DQN_KEYS = ("td_loss", "mean_reward_per_step")
+
+
+def flag(args, name) -> int:
+    return int(args[args.index(name) + 1])
+
+
+def acer_expected(args) -> tuple:
+    """(render launches, replay updates by iteration) of an ACER run with
+    the default config (n_steps 20, replays of 4 once 4 segments are
+    stored): 121 and [0, 0, 0, 4, 4, 4] for ACER_ARGS."""
+    n = flag(args, "--num-envs")
+    iterations = int(flag(args, "--num-timesteps") * 1.1) // (20 * n)
+    return 20 * iterations + 1, [4 if i >= 3 else 0 for i in range(iterations)]
+
+
+def dqn_expected(args, chunk: int = 64) -> tuple:
+    """(vector steps, TD updates, target copies) of a DQN run with the
+    default config (learning_starts 500, train_freq 4, a target copy every
+    500 env steps): 128, 32 and the steps k with 256 k % 500 < 256 for
+    DQN_ARGS."""
+    n = flag(args, "--num-envs")
+    total = int(flag(args, "--num-timesteps") * 1.1)
+    steps = chunk * -(-total // (chunk * n))
+    ks = range(1, steps + 1)
+    return (steps, sum(n * k >= 500 and k % 4 == 0 for k in ks),
+            sum((n * k) % 500 < n for k in ks))
+
+
+class Trained:
+    """The agent a CLI run trains with ``cls``: its ``learn`` is wrapped
+    for the run to keep the agent (``self.agent``), so that a reloaded
+    policy can be held against the trained one."""
+
+    def __init__(self, cls):
+        self.cls, self.agent = cls, None
+
+    def __enter__(self):
+        self.own = self.cls.__dict__.get("learn")
+        learn = self.cls.learn
+
+        def keep(agent, *args, **kwargs):
+            self.agent = agent
+            return learn(agent, *args, **kwargs)
+
+        self.cls.learn = keep
+        return self
+
+    def __exit__(self, *exc):
+        if self.own is None:
+            del self.cls.learn
+        else:
+            self.cls.learn = self.own
+
+
+def replay_agents(torch, train, counters) -> dict:
+    """Step 9: ACER (9a, the slice's main path) and RecurrentACER (9b) on the
+    Kuka pixel path, DQN on MobileRobot pixels (9c)."""
+    from srl_tpu_torch.agents.acer import ACER, RecurrentACER
+    from srl_tpu_torch.agents.base import BaseRLAgent
+    from srl_tpu_torch.agents.dqn import DQN
+
+    out = {}
+    one_done = np.array([True] + [False] * 7)
+    for step, args, cls, kernel, dones_seq in (
+            ("9a acer (cnn)", ACER_ARGS, ACER, "render3d", (None, None)),
+            ("9b acer --policy cnnlstm", LSTM_ACER_ARGS, RecurrentACER, "render3d",
+             (None, one_done))):
+        launches_expected, replays_expected = acer_expected(args)
+        with tempfile.TemporaryDirectory() as root, Trained(cls) as trained:
+            log_dir, seconds, launches, entries = run_cli(
+                torch, train, args + ["--log-dir", root, "--device", "cuda"], counters,
+                f"{step} KukaButtonGymEnv-v0 raw_pixels 256 envs", ACER_KEYS)
+            replays = [int(e["replays"]) for e in entries]
+            if launches[kernel] != launches_expected or replays != replays_expected:
+                raise AssertionError(f"{step}: {kernel} launched {launches[kernel]} times, "
+                                     f"not {launches_expected}; replays by iteration "
+                                     f"{replays}, not {replays_expected}")
+            buffer = trained.agent.state.buffer
+            store_gb = sum(getattr(buffer, n).nbytes for n in buffer.tensor_names()) / 1e9
+            env = trained.agent.env
+            path = os.path.join(log_dir, "acer_final_model.pkl")
+            saved = cls.load(path, env, None, device="cuda")
+            acts = acts_alike(torch, saved, trained.agent, env, step, dones_seq)
+            name = BaseRLAgent._load_pickle(path)["name"]
+            if name != (cls.pickle_name or cls.name):
+                raise AssertionError(f"{step}: the policy pickle is named {name}")
+            log(f"[replay] {step}: {sum(replays)} replay updates (by iteration {replays}) "
+                f"from a {tuple(buffer.obs.shape)} {buffer.obs.dtype} store, {store_gb:.2f} GB "
+                f"on the card; the saved '{name}' model reloads and acts as the trained agent "
+                f"on two steps of 8 Kuka frames: {acts}; loss_q by iteration "
+                + ", ".join(f"{e['loss_q']:.4g}" for e in entries))
+            out[step.split()[0]] = launches[kernel]
+            trained.agent = saved = None  # the segment store's 10 GB
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as root, Trained(DQN) as trained:
+        log_dir, seconds, launches, entries = run_cli(
+            torch, train, DQN_ARGS + ["--log-dir", root, "--device", "cuda"], counters,
+            "9c deepq (cnn) MobileRobotGymEnv-v0 raw_pixels 224x224 256 envs", DQN_KEYS)
+        updates = sum(e["td_updates"] for e in entries)
+        copies = sum(e["target_copies"] for e in entries)
+        n_steps, updates_expected, copies_expected = dqn_expected(DQN_ARGS)
+        if (launches["render2d"] != n_steps + 1 or len(entries) != n_steps // 64
+                or updates != updates_expected or copies != copies_expected):
+            raise AssertionError(f"9c: {len(entries)} chunks, render2d launched "
+                                 f"{launches['render2d']} times (not {n_steps + 1}), "
+                                 f"{updates} TD updates (not {updates_expected}), {copies} "
+                                 f"target copies (not {copies_expected})")
+        buffer = trained.agent.state.buffer
+        env = trained.agent.env
+        path = os.path.join(log_dir, "deepq_final_model.pkl")
+        saved = DQN.load(path, env, None, device="cuda")
+        acts = acts_alike(torch, saved, trained.agent, env, "9c")
+        store_mb = (buffer.obs.nbytes + buffer.next_obs.nbytes) / 1e6
+        log(f"[replay] 9c: {updates} TD updates, {copies} target copies, a "
+            f"{tuple(buffer.obs.shape)} store of obs and next_obs ({store_mb:.0f} MB); the "
+            f"saved 'deepq' model reloads and acts greedily as the trained agent on two "
+            f"steps of 8 MobileRobot frames: {acts}; td_loss by chunk "
+            + ", ".join(f"{e['td_loss']:.4g}" for e in entries))
+        out["9c"] = launches["render2d"]
     return out
 
 
@@ -905,6 +1060,12 @@ def main() -> int:
     lstm_launches = recurrent_agents(torch, train, counters)
     log(f"[lstm] launches: {json.dumps(lstm_launches)}; step 8 took "
         f"{time.perf_counter() - t_step8:.1f} s")
+    t_step9 = time.perf_counter()
+
+    # 9. ACER, RecurrentACER and DQN.
+    replay_launches = replay_agents(torch, train, counters)
+    log(f"[replay] launches: {json.dumps(replay_launches)}; step 9 took "
+        f"{time.perf_counter() - t_step9:.1f} s")
     log(f"[done] {time.perf_counter() - t_start:.1f} s after start-up")
 
     print(json.dumps({"kernels": [{
@@ -915,6 +1076,7 @@ def main() -> int:
         "launches": kuka_launches["render3d"],
         "recompute_obs_launches": surface_launches["recompute_obs"],
         "lstm_ppo_launches": lstm_launches["lstm_ppo"],
+        "acer_launches": replay_launches["9a"],
         "max_abs_err": max(r3_err, mb["max_abs_err"]),
         "ms": r3_ms,
         "plain_ms": r3_plain_ms,
@@ -928,6 +1090,7 @@ def main() -> int:
         "replaces": "srl_tpu/ops/pallas_render.py:111",
         "launches": mobile_launches["render2d"],
         "acktr_launches": lstm_launches["8c"],
+        "dqn_launches": replay_launches["9c"],
         "max_abs_err": r2_err,
         "ms": r2_ms,
         "plain_ms": r2_plain_ms,

@@ -5,7 +5,9 @@ from __future__ import annotations
 
 from srl_tpu_torch.agents import ActionType, AlgoType
 from srl_tpu_torch.agents.a2c import A2C, RecurrentA2C
+from srl_tpu_torch.agents.acer import ACER, RecurrentACER
 from srl_tpu_torch.agents.acktr import ACKTR, RecurrentACKTR
+from srl_tpu_torch.agents.dqn import DQN
 from srl_tpu_torch.agents.ppo import PPO2
 from srl_tpu_torch.agents.ppo1 import PPO1
 from srl_tpu_torch.agents.recurrent_ppo import RecurrentPPO2
@@ -15,28 +17,28 @@ from srl_tpu_torch.core.registry import Registry
 registered_rl: Registry = Registry("rl algo")
 _BOTH = [ActionType.DISCRETE, ActionType.CONTINUOUS]
 registered_rl.register("a2c", (A2C, AlgoType.REINFORCEMENT_LEARNING, _BOTH))
+registered_rl.register("acer", (ACER, AlgoType.REINFORCEMENT_LEARNING,
+                                [ActionType.DISCRETE]))
 registered_rl.register("acktr", (ACKTR, AlgoType.REINFORCEMENT_LEARNING,
+                                 [ActionType.DISCRETE]))
+registered_rl.register("deepq", (DQN, AlgoType.REINFORCEMENT_LEARNING,
                                  [ActionType.DISCRETE]))
 registered_rl.register("ppo2", (PPO2, AlgoType.REINFORCEMENT_LEARNING, _BOTH))
 registered_rl.register("ppo1", (PPO1, AlgoType.REINFORCEMENT_LEARNING, _BOTH))
 registered_rl.register("trpo", (TRPO, AlgoType.REINFORCEMENT_LEARNING, _BOTH))
 
 # The agent class of each algo with an lstm/lnlstm/cnnlstm/cnnlnlstm policy.
-_RECURRENT = {"ppo2": RecurrentPPO2, "a2c": RecurrentA2C, "acktr": RecurrentACKTR}
+_RECURRENT = {"ppo2": RecurrentPPO2, "a2c": RecurrentA2C, "acer": RecurrentACER,
+              "acktr": RecurrentACKTR}
 
 
 def resolve_policy_class(algo: str, policy: str = "auto"):
     """The agent class of an (algo, policy) pair: the recurrent policies
     route to the Recurrent* agents, as the reference's policy selection
-    does; TRPO and PPO1 have none (the reference's AssertionError), and
-    RecurrentACER is not ported yet."""
+    does; the other algos have none (the reference's AssertionError)."""
     if "lstm" not in (policy or ""):
         return registered_rl[algo][0]
     if algo in _RECURRENT:
         return _RECURRENT[algo]
-    if algo == "acer":
-        raise NotImplementedError(
-            f"--algo acer --policy {policy} (RecurrentACER) is not ported to "
-            "srl_tpu_torch yet (A11 step 6); use srl_tpu.experiments.train for it")
     raise AssertionError("Error: recurrent policies are currently supported for "
                          "ppo2, a2c, acer and acktr")

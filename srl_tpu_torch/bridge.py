@@ -1,11 +1,15 @@
 """Weights and state across the two packages, as numpy.
 
-* Flax parameter trees of the reference ``ActorCritic`` become this port's
+* Flax parameter trees of the reference ``ActorCritic`` (and of ACER's
+  ``ACERNet`` and DQN's ``DuelingQNet``: the torso as ``MlpTorso_0`` or
+  ``NatureCnnTorso_0``, the heads ``pi``/``q`` and ``value``/``adv``/``q``
+  by name) become this port's
   ``state_dict`` and back: a Dense kernel [in, out] is a Linear weight
   [out, in], a conv kernel HWIO is OIHW, and the Nature CNN's fc kernel needs
   nothing more because both torsos flatten in NHWC order.
 * ``recurrent_state_dict_to_flax`` / ``recurrent_flax_to_state_dict`` do
-  the same for the recurrent ``LstmActorCritic`` (the torso under
+  the same for the recurrent ``LstmActorCritic`` and ``LstmACERNet`` (the
+  torso under
   ``features``, the cell's stacked gate kernels split into Flax's one Dense
   per gate and side, the LayerNorm's ``scale``), and
   ``acktr_params_to_reference`` / ``acktr_params_from_reference`` for
@@ -23,9 +27,12 @@
   of per-family ``VecEnvState``s.
 * ``read_reference_pickle`` / ``write_reference_pickle`` read and write the
   reference's full training-state checkpoints (``checkpoint.pkl``: a
-  ``PPOState``, ``RecurrentPPOState``, ``ACKTRState`` or
-  ``RecurrentACKTRState`` of params, optimizer state, ``VecEnvState``,
-  observations, ``RunningNorm``, key and update counter) by class name,
+  ``PPOState``, ``RecurrentPPOState``, ``ACKTRState``,
+  ``RecurrentACKTRState``, ``ACERState``, ``RecurrentACERState`` or
+  ``DQNState`` of params, optimizer state, ``VecEnvState``, observations,
+  ``RunningNorm``, key and update counter, with ACER's
+  ``SegmentBuffer``/``RecurrentSegmentBuffer`` and DQN's ``ReplayBuffer``)
+  by class name,
   importing neither ``srl_tpu`` nor optax: the reference's classes become
   ``Record``s, and ``to_port`` / ``to_reference`` convert their state
   dataclasses both ways.
@@ -327,6 +334,12 @@ REFERENCE_DATACLASSES = (
     "srl_tpu.agents.recurrent_ppo.RecurrentPPOState",
     "srl_tpu.agents.acktr.ACKTRState",
     "srl_tpu.agents.acktr.RecurrentACKTRState",
+    "srl_tpu.agents.acer.ACERState",
+    "srl_tpu.agents.acer.SegmentBuffer",
+    "srl_tpu.agents.acer.RecurrentACERState",
+    "srl_tpu.agents.acer.RecurrentSegmentBuffer",
+    "srl_tpu.agents.dqn.DQNState",
+    "srl_tpu.agents.buffers.ReplayBuffer",
     "srl_tpu.core.env.VecEnvState",
     "srl_tpu.core.normalize.RunningNorm",
     "srl_tpu.core.frame_stack.FrameStackState",

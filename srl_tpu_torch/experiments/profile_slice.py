@@ -9,12 +9,16 @@ PPO2 on that encoder's states (``SRLEncodedEnv``: render, then encode);
 rasterised at 224x224), with the rollout's env and render time split by
 family. ``--algo`` and ``--policy`` pick another agent (``--algo ppo2
 --policy cnnlstm``: the recurrent PPO2 at its tuned 609 steps; ``--algo
-a2c --policy cnnlnlstm``; ``--algo acktr [--policy cnnlstm]``), the
-agent's own defaults otherwise.
+a2c --policy cnnlnlstm``; ``--algo acktr [--policy cnnlstm]``; ``--algo
+acer [--policy cnnlstm]``, profiled once its buffer holds ``replay_start``
+segments, so the iteration replays; ``--algo deepq``, whose "update" is
+``train_freq`` vector steps, one TD update among them, once past
+``learning_starts``), the agent's own defaults otherwise.
 
     python -m srl_tpu_torch.experiments.profile_slice [--env ENV_ID]
         [--srl-model NAME [--srl-model-path CHECKPOINT]] [--num-envs 256]
-        [--mixed-envs ENV_ID ...] [--algo ppo2|a2c|acktr] [--policy KIND]
+        [--mixed-envs ENV_ID ...] [--algo ppo2|a2c|acktr|acer|deepq]
+        [--policy KIND]
 
 After one warm-up update it reports, on the host clock with the device
 synchronised around each part:
@@ -30,7 +34,12 @@ synchronised around each part:
   heads, loss and optimizer step, for one minibatch (PPO2; times
   nminibatches x noptepochs for an update) or the whole segment (A2C); for
   ACKTR the loss backward, the Fisher G backward, the factor EMAs, the
-  inverses (the preconditioning) and the trust-region momentum step;
+  inverses (the preconditioning) and the trust-region momentum step; for
+  ACER the on-policy update (the forward with grad, the average policy's
+  forward, the logit-space gradients, the backward, the optimizer), the
+  ``replay_ratio`` replay updates and the average policy's EMA; for DQN,
+  per vector step, acting, the env step, the insert, and per TD update the
+  batch draw, the loss forward and backward with Adam, and a target copy;
 * under ``torch.profiler``, one more update: device time by kernel (top 12),
   kernel launches per update and per env step, and the device's busy and
   idle share of the update's wall time (the recurrent PPO2's update is too
@@ -50,10 +59,12 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from srl_tpu_torch.agents.acer import ACER, acer_logit_grads
 from srl_tpu_torch.agents.acktr import ACKTR
 from srl_tpu_torch.agents.base import RecurrentActing
 from srl_tpu_torch.agents.common import (collect_recurrent_rollout, collect_rollout,
                                          compute_gae)
+from srl_tpu_torch.agents.dqn import DQN
 from srl_tpu_torch.agents.recurrent_ppo import RecurrentPolicyMixin, RecurrentPPO2
 from srl_tpu_torch.agents.registry import resolve_policy_class
 from srl_tpu_torch.core.mixed_env import MixedEnv, MixedVecEnv
@@ -210,6 +221,114 @@ def acktr_update_split(agent, state, gen) -> dict:
             "factor_sizes": {w: list(a.shape) for w, a in kfac_A.items()}}
 
 
+def acer_update_split(agent, state, gen) -> dict:
+    """Seconds of each part of an ACER iteration after its rollout: the
+    on-policy update (forward with grad, the average policy's forward, the
+    logit-space gradients, the backward, the optimizer step), the
+    ``replay_ratio`` replays from the stored segments, and the EMA (on
+    copies: ``state`` is left as it is but for nothing)."""
+    cfg = agent.config
+    seg = agent.rollout(state, gen)[5]
+    params = {k: v.detach().clone() for k, v in state.params.items()}
+    opt_state = {"count": 0, "nu": {k: v.clone() for k, v in state.opt_state["nu"].items()}}
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    (logits, q), t_fwd = _sync_time(lambda: agent.segment_outputs(leaves, seg))
+    with torch.no_grad():
+        (avg_logits, _), t_avg = _sync_time(
+            lambda: agent.segment_outputs(state.avg_params, seg))
+    (g_logits, g_q), t_grads = _sync_time(lambda: acer_logit_grads(
+        logits.detach(), q.detach(), avg_logits, seg["actions"], seg["rewards"],
+        seg["dones"], seg["mus"], cfg))
+    grads, t_bwd = _sync_time(lambda: torch.autograd.grad(
+        (logits, q), list(leaves.values()), (g_logits, g_q * cfg.q_coef)))
+    _, t_opt = _sync_time(lambda: agent.optimizer_step_(params, dict(zip(leaves, grads)),
+                                                        opt_state))
+    idx = torch.randint(0, state.buffer.size, (cfg.replay_ratio,), generator=gen,
+                        device=gen.device)
+    _, t_replays = _sync_time(lambda: [
+        agent.update_(params, opt_state, state.avg_params, state.buffer.segment(idx[i:i + 1]))
+        for i in range(cfg.replay_ratio)])
+    with torch.no_grad():
+        _, t_ema = _sync_time(lambda: {k: cfg.alpha * a + (1 - cfg.alpha) * params[k]
+                                       for k, a in state.avg_params.items()})
+    return {"per": "iteration", "frames_per_segment": int(seg["obs"].shape[0]
+                                                          * seg["obs"].shape[1]),
+            "on_policy_forward": t_fwd, "average_policy_forward": t_avg,
+            "logit_grads": t_grads, "backward": t_bwd, "optimizer": t_opt,
+            "on_policy_total": t_fwd + t_avg + t_grads + t_bwd + t_opt,
+            "replays": t_replays, "replay_ratio": cfg.replay_ratio, "ema": t_ema,
+            "buffer_gb": sum(getattr(state.buffer, n).nbytes
+                             for n in state.buffer.tensor_names()) / 2**30}
+
+
+def dqn_profile(agent, state, gen, args, smi) -> dict:
+    """DQN past ``learning_starts``: the seconds of ``train_freq`` vector
+    steps (one TD update among them), each part synchronised (acting, env
+    step, insert per step; batch draw and gather, loss forward and backward
+    with Adam, and a target copy per update), then one such window under
+    ``torch.profiler``."""
+    cfg, n = agent.config, agent.num_envs
+    while state.global_step < max(cfg.learning_starts, 2 * n * cfg.train_freq):
+        state = agent.train_step(state, gen)[0]
+    window = cfg.train_freq
+
+    def steps():
+        for _ in range(window):
+            agent.train_step(state, gen)
+
+    _, t_window = _sync_time(steps)
+    parts = dict(act=0.0, env_step=0.0, insert=0.0)
+    for _ in range(window):
+        norm = state.obs_norm.normalize(state.obs) if state.obs_norm is not None else state.obs
+        with torch.no_grad():
+            actions, t = _sync_time(lambda: torch.argmax(
+                agent.q_values(state.params, norm), 1).to(torch.int32))
+        parts["act"] += t
+        (vstate, tr), t = _sync_time(lambda: agent.vec_env.step(state.vstate, actions, gen))
+        parts["env_step"] += t
+        _, t = _sync_time(lambda: state.buffer.add_batch(norm, actions, tr.reward, tr.obs,
+                                                         tr.done))
+        parts["insert"] += t
+        state.vstate, state.obs = vstate, tr.obs
+    idx, t_draw = _sync_time(lambda: state.buffer.draw_prioritized(
+        gen, cfg.batch_size, cfg.prioritized_replay_alpha))
+    _, t_td = _sync_time(lambda: agent.td_update_(state, idx, gen))
+    _, t_copy = _sync_time(lambda: {k: v.clone() for k, v in state.params.items()})
+    seconds, busy_us, launches, by_kernel = profiled(steps)
+    env_steps = window * n
+    top = sorted(by_kernel.items(), key=lambda kv: kv[1], reverse=True)[:12]
+    result = {
+        "card": smi, "algo": "deepq", "env": args.env, "srl_model": args.srl_model,
+        "num_envs": n, "window_vector_steps": window, "window_s": t_window,
+        "env_steps_per_s": env_steps / t_window,
+        "per_vector_step_s": {k: v / window for k, v in parts.items()},
+        "per_td_update_s": {"draw": t_draw, "loss_backward_adam": t_td},
+        "target_copy_s": t_copy,
+        "profiled_window_s": seconds, "device_busy_s": busy_us / 1e6,
+        "device_idle_share": 1.0 - busy_us / 1e6 / seconds,
+        "kernel_launches_per_window": launches,
+        "kernel_launches_per_env_step": launches / window,
+        "buffer_gb": sum(getattr(state.buffer, name).nbytes
+                         for name in state.buffer.tensor_names()) / 2**30,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "top_kernels_ms": {name[:80]: us / 1e3 for name, us in top},
+    }
+    print(f"card: {smi}; deepq on {args.env} {args.srl_model}, {n} envs")
+    print(f"{window} vector steps (one TD update) {t_window:.4f} s, "
+          f"{result['env_steps_per_s']:.0f} env-steps/s; per vector step: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in result["per_vector_step_s"].items())
+          + f"; per TD update: draw {t_draw:.4f}, loss+backward+Adam {t_td:.4f}; "
+          f"target copy {t_copy:.4f}")
+    print(f"profiled window {seconds:.3f} s: device busy {busy_us / 1e6:.3f} s, idle share "
+          f"{result['device_idle_share']:.3f}, {launches} launches ({launches / window:.1f} "
+          f"per vector step); buffer {result['buffer_gb']:.3f} GiB; peak device memory "
+          f"{result['peak_memory_gb']:.1f} GiB")
+    for name, ms in result["top_kernels_ms"].items():
+        print(f"  {ms:9.2f} ms  {name}")
+    print(json.dumps(result))
+    return result
+
+
 def rollout_split(agent, state, gen, n_steps: int) -> dict:
     """Seconds per part over ``n_steps`` steps, synchronising between parts;
     env dynamics and render per family of a mixed batch."""
@@ -258,7 +377,8 @@ def main(argv=None) -> dict:
     parser.add_argument("--mixed-envs", nargs="+", default=None, metavar="ENV_ID",
                         choices=list(registered_env.keys()),
                         help="profile one learner on a batch of these env families")
-    parser.add_argument("--algo", default="ppo2", choices=["ppo2", "a2c", "acktr"])
+    parser.add_argument("--algo", default="ppo2",
+                        choices=["ppo2", "a2c", "acktr", "acer", "deepq"])
     parser.add_argument("--policy", default="auto",
                         choices=["auto", "mlp", "cnn", "lstm", "lnlstm", "cnnlstm",
                                  "cnnlnlstm"])
@@ -292,7 +412,16 @@ def main(argv=None) -> dict:
     agent.n_updates = 3
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     state = agent.init_state(gen, args.seed)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    if isinstance(agent, DQN):
+        agent._total_timesteps = 100 * agent.config.learning_starts
+        return dqn_profile(agent, state, gen, args, smi)
     state, _ = agent.train_iteration(state, gen)  # warm-up: cuDNN plans, allocator
+    if isinstance(agent, ACER):  # until the timed iteration replays
+        while state.buffer.size + 1 < agent.config.replay_start:
+            state, _ = agent.train_iteration(state, gen)
 
     (state, _), t_update = _sync_time(lambda: agent.train_iteration(state, gen))
     n_steps = agent.config.n_steps
@@ -301,6 +430,8 @@ def main(argv=None) -> dict:
     update_split = None
     if isinstance(agent, ACKTR):
         update_split = acktr_update_split(agent, state, gen)
+    elif isinstance(agent, ACER):
+        update_split = acer_update_split(agent, state, gen)
     elif isinstance(agent, RecurrentPolicyMixin):
         # The first call's backward from an explicit gradient imports
         # modules (seconds): report the second.
@@ -332,11 +463,8 @@ def main(argv=None) -> dict:
             by_kernel[name] = by_kernel.get(name, 0.0) + us * k
     top = sorted(by_kernel.items(), key=lambda kv: kv[1], reverse=True)[:12]
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     result = {
-        "card": smi.splitlines()[0],
+        "card": smi,
         "algo": args.algo,
         "policy": getattr(agent, "policy_kind", args.policy),
         "n_steps": n_steps,

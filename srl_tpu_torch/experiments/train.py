@@ -1,9 +1,9 @@
 """Training entry point (counterpart of srl_tpu/experiments/train.py).
 
 The reference CLI for the agents ported so far (``--algo
-ppo2|ppo1|a2c|trpo|acktr`` from ``agents/registry``, and ``--policy
-lstm|lnlstm|cnnlstm|cnnlnlstm`` for ppo2, a2c and acktr, routed to the
-Recurrent* agents by ``resolve_policy_class``) on every registered env (Kuka, MobileRobot,
+ppo2|ppo1|a2c|trpo|acktr|acer|deepq`` from ``agents/registry``, and
+``--policy lstm|lnlstm|cnnlstm|cnnlnlstm`` for ppo2, a2c, acer and acktr,
+routed to the Recurrent* agents by ``resolve_policy_class``) on every registered env (Kuka, MobileRobot,
 Omnirobot, CarRacing) with every ``--srl-model`` of the registry, optionally
 with ``--num-stack`` frames, or on a mixed batch of env families
 (``--mixed-envs``: one learner over contiguous per-family slices,
@@ -32,7 +32,12 @@ resume from, and the CLI refuses with the reference's message).
 normalizer, with a fresh optimizer and env (the reference's run discards
 the loaded weights: ROADMAP Queue C). The default config is the resolved
 class's (the recurrent PPO2's is ``lstm_ppo_config``); ``--hyperparam``
-parses against the registered class, as in the reference. Not ported yet,
+parses against the registered class, as in the reference. DQN's
+``--buffer-size`` and ``--dueling`` name config fields and reach its
+config; ``--prioritized`` names none (the field is ``prioritized_replay``),
+so it changes nothing, as in the reference (ROADMAP Queue C). A checkpoint
+of ACER or DQN holds its replay store too: about 10 GB for ACER at the Kuka
+pixel run's width (256 envs, 112x112 frames). Not ported yet,
 and refused with a message: the other algos. ``--port`` and ``--no-vis``
 are accepted and draw nothing.
 

@@ -127,6 +127,20 @@ class NatureCnnTorso(nn.Module):
         return x.to(torch.float32)
 
 
+def make_torso(obs_shape, kind: str, input_scale: int = 1) -> nn.Module:
+    """``MlpTorso`` over the flattened observation (``mlp``) or the Nature
+    CNN (``cnn``)."""
+    if kind == "mlp":
+        return MlpTorso(int(np.prod(obs_shape)))
+    return NatureCnnTorso(obs_shape, input_scale)
+
+
+def torso_kind(policy: str, obs_shape) -> str:
+    """The reference's selection: ``cnn`` for ``cnn``, and for ``auto`` on
+    image observations; ``mlp`` otherwise."""
+    return "cnn" if policy == "cnn" or (policy == "auto" and len(obs_shape) == 3) else "mlp"
+
+
 class ActorCritic(nn.Module):
     """Shared torso, value head ``vf`` and policy head ``pi`` (logits, or a
     Gaussian mean with a state-independent ``log_std``)."""
@@ -136,10 +150,7 @@ class ActorCritic(nn.Module):
         super().__init__()
         self.action_space = action_space
         self.torso_kind = torso
-        if torso == "mlp":
-            self.torso = MlpTorso(int(np.prod(obs_shape)))
-        else:
-            self.torso = NatureCnnTorso(obs_shape, input_scale)
+        self.torso = make_torso(obs_shape, torso, input_scale)
         latent = self.torso.out_dim
         self.vf = _linear(latent, 1, gain=1.0)
         if isinstance(action_space, Discrete):
@@ -162,11 +173,8 @@ class ActorCritic(nn.Module):
 def make_policy(action_space: Space, obs_shape, policy: str = "mlp",
                 input_scale: int = 1) -> ActorCritic:
     """``cnn`` for image observations under ``auto``, else ``mlp``."""
-    if policy == "cnn" or (policy == "auto" and len(obs_shape) == 3):
-        torso = "cnn"
-    elif policy in ("mlp", "auto"):
-        torso = "mlp"
-    else:
+    if policy not in ("mlp", "cnn", "auto"):
         raise ValueError(f"unknown policy kind '{policy}' (mlp|cnn|auto)")
+    torso = torso_kind(policy, obs_shape)
     return ActorCritic(action_space, tuple(obs_shape), torso,
                        input_scale if torso == "cnn" else 1)

@@ -33,7 +33,7 @@ import torch.nn.functional as F
 
 from srl_tpu_torch.core.spaces import Discrete, Space
 from srl_tpu_torch.models.distributions import Categorical, DiagGaussian
-from srl_tpu_torch.models.policies import MlpTorso, NatureCnnTorso, _linear
+from srl_tpu_torch.models.policies import _linear, make_torso
 
 N_LSTM = 64
 Carry = Tuple[torch.Tensor, torch.Tensor]
@@ -92,19 +92,52 @@ def mask_carry(carry: Carry, done: torch.Tensor) -> Carry:
     return carry[0] * mask, carry[1] * mask
 
 
-class LstmActorCritic(nn.Module):
-    def __init__(self, action_space: Space, obs_shape, torso: str = "mlp",
-                 n_lstm: int = N_LSTM, layer_norm: bool = False):
+class LstmCore(nn.Module):
+    """The torso, Flax's LSTM cell and an optional LayerNorm, under the
+    parameter names the bridge maps (``torso``, ``cell``, ``ln``); a
+    subclass adds its heads. ``hidden(obs, carry, done)`` takes one step for
+    ``done`` [B]; for ``done`` [T, B] (obs [T, B, ...]) it runs the torso
+    once over the T*B frames and the input projection as one matmul, then
+    only the cell over T."""
+
+    def __init__(self, obs_shape, torso: str = "mlp", n_lstm: int = N_LSTM,
+                 layer_norm: bool = False):
         super().__init__()
-        self.action_space = action_space
         self.torso_kind = torso
         self.n_lstm = n_lstm
-        if torso == "mlp":
-            self.torso = MlpTorso(int(np.prod(obs_shape)))
-        else:
-            self.torso = NatureCnnTorso(obs_shape)
+        self.torso = make_torso(obs_shape, torso)
         self.cell = LstmCell(self.torso.out_dim, n_lstm)
         self.ln = FlaxLayerNorm(n_lstm) if layer_norm else None
+
+    def initial_state(self, batch: int, device="cpu") -> Carry:
+        zeros = torch.zeros((batch, self.n_lstm), dtype=torch.float32, device=device)
+        return zeros, zeros.clone()
+
+    def _norm(self, h):
+        return self.ln(h) if self.ln is not None else h
+
+    def hidden(self, obs, carry: Carry, done):
+        """(the cell's outputs before the LayerNorm, [B, H] or [T, B, H];
+        the last carry)."""
+        if done.dim() == 1:
+            carry = self.cell.step(self.cell.project_input(self.torso(obs)),
+                                   mask_carry(carry, done))
+            return carry[1], carry
+        t, b = done.shape
+        x = self.cell.project_input(self.torso(obs.reshape((t * b,) + obs.shape[2:])))
+        x = x.reshape(t, b, -1)
+        hs = []
+        for k in range(t):
+            carry = self.cell.step(x[k], mask_carry(carry, done[k]))
+            hs.append(carry[1])
+        return torch.stack(hs), carry
+
+
+class LstmActorCritic(LstmCore):
+    def __init__(self, action_space: Space, obs_shape, torso: str = "mlp",
+                 n_lstm: int = N_LSTM, layer_norm: bool = False):
+        super().__init__(obs_shape, torso, n_lstm, layer_norm)
+        self.action_space = action_space
         self.vf = _linear(n_lstm, 1, gain=1.0)
         if isinstance(action_space, Discrete):
             self.pi = _linear(n_lstm, action_space.n, gain=0.01)
@@ -114,13 +147,8 @@ class LstmActorCritic(nn.Module):
             self.pi = _linear(n_lstm, act_dim, gain=0.01)
             self.log_std = nn.Parameter(torch.zeros(act_dim))
 
-    def initial_state(self, batch: int, device="cpu") -> Carry:
-        zeros = torch.zeros((batch, self.n_lstm), dtype=torch.float32, device=device)
-        return zeros, zeros.clone()
-
     def _heads(self, h):
-        if self.ln is not None:
-            h = self.ln(h)
+        h = self._norm(h)
         value = self.vf(h)[..., 0]
         out = self.pi(h)
         if self.log_std is None:
@@ -131,19 +159,8 @@ class LstmActorCritic(nn.Module):
         """(distribution, value, carry'): one step for ``done`` [B], a
         segment for ``done`` [T, B] (obs [T, B, ...]; the distribution and
         values then [T, B, ...])."""
-        if done.dim() == 1:
-            x = self.cell.project_input(self.torso(obs))
-            carry = self.cell.step(x, mask_carry(carry, done))
-            dist, value = self._heads(carry[1])
-            return dist, value, carry
-        t, b = done.shape
-        x = self.cell.project_input(self.torso(obs.reshape((t * b,) + obs.shape[2:])))
-        x = x.reshape(t, b, -1)
-        hs = []
-        for k in range(t):
-            carry = self.cell.step(x[k], mask_carry(carry, done[k]))
-            hs.append(carry[1])
-        dist, value = self._heads(torch.stack(hs))
+        h, carry = self.hidden(obs, carry, done)
+        dist, value = self._heads(h)
         return dist, value, carry
 
 

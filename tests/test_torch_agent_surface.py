@@ -8,14 +8,19 @@
   (continuous actions, the Gaussian's mean, and probabilities within rtol
   1e-6).
 * ``getOptParam`` tables, ``parserHyperParam`` values and its
-  AssertionErrors, the registry's entries (ACKTR's too), the recurrent
-  policies' routes and the enums' values: equal.
-* The default configs of the four agents: equal.
+  AssertionErrors (ACER's and DQN's too), the registry's entries (ACKTR's,
+  ACER's and DQN's too), the recurrent policies' routes (ACER's too) and
+  the enums' values: equal.
+* The default configs of the four agents, ACER, RecurrentACER and DQN:
+  equal. The C1 signatures of ACER, RecurrentACER and DQN: the reference's
+  parameters and defaults (DQN's ``deterministic=True``), then the port's
+  keyword-only ``gen`` and ``device``.
 * ``utils.logging``, ``utils.monitor`` (``MonitorWriter(append=True)``,
   ``load_csv``, ``compute_mean_reward``) and ``RunningNorm.save``/``load``:
   each file written by one package reads in the other, exactly.
 """
 import dataclasses
+import inspect
 
 import jax
 import numpy as np
@@ -25,6 +30,9 @@ import torch
 from srl_tpu.agents import ActionType as JActionType
 from srl_tpu.agents import AlgoType as JAlgoType
 from srl_tpu.agents.a2c import A2C as JA2C
+from srl_tpu.agents.acer import ACER as JACER
+from srl_tpu.agents.acer import RecurrentACER as JRecurrentACER
+from srl_tpu.agents.dqn import DQN as JDQN
 from srl_tpu.agents.ppo import PPO2 as JPPO2
 from srl_tpu.agents.ppo1 import PPO1 as JPPO1
 from srl_tpu.agents.registry import registered_rl as jregistry
@@ -36,6 +44,8 @@ from srl_tpu.utils import logging as jlogging
 from srl_tpu.utils import monitor as jmonitor
 from srl_tpu_torch.agents import ActionType, AlgoType
 from srl_tpu_torch.agents.a2c import A2C
+from srl_tpu_torch.agents.acer import ACER, RecurrentACER
+from srl_tpu_torch.agents.dqn import DQN
 from srl_tpu_torch.agents.ppo import PPO2
 from srl_tpu_torch.agents.ppo1 import PPO1
 from srl_tpu_torch.agents.registry import registered_rl, resolve_policy_class
@@ -49,6 +59,9 @@ torch.set_num_threads(1)
 
 ALGOS = {"ppo2": (JPPO2, PPO2), "ppo1": (JPPO1, PPO1), "a2c": (JA2C, A2C),
          "trpo": (JTRPO, TRPO)}
+# The discrete-only agents of the replay slice.
+REPLAY_ALGOS = {"acer": (JACER, ACER), "acer_lstm": (JRecurrentACER, RecurrentACER),
+                "deepq": (JDQN, DQN)}
 
 
 @pytest.mark.parametrize("continuous", [False, True], ids=["discrete", "continuous"])
@@ -85,9 +98,9 @@ def test_reference_call_forms(algo, continuous, tmp_path):
     assert tagent.getAction(obs, dones).shape == sampled.shape
 
 
-@pytest.mark.parametrize("algo", list(ALGOS))
+@pytest.mark.parametrize("algo", list(ALGOS) + ["acer", "deepq"])
 def test_opt_param_tables_and_parsing(algo):
-    jcls, tcls = ALGOS[algo]
+    jcls, tcls = {**ALGOS, **REPLAY_ALGOS}[algo]
     table = tcls.getOptParam()
     assert table == jcls.getOptParam()
     good = [f"{k}:{'16' if kind is int else '0.5'}" for k, (kind, _) in table.items()
@@ -107,7 +120,8 @@ def test_opt_param_tables_and_parsing(algo):
 def test_registry_and_enums_match_reference():
     assert {e.name: e.value for e in AlgoType} == {e.name: e.value for e in JAlgoType}
     assert {e.name: e.value for e in ActionType} == {e.name: e.value for e in JActionType}
-    assert sorted(registered_rl.keys()) == ["a2c", "acktr", "ppo1", "ppo2", "trpo"]
+    assert sorted(registered_rl.keys()) == ["a2c", "acer", "acktr", "deepq", "ppo1", "ppo2",
+                                            "trpo"]
     for name in registered_rl:
         cls, algo_type, actions = registered_rl[name]
         jcls, jtype, jactions = jregistry[name]
@@ -116,27 +130,45 @@ def test_registry_and_enums_match_reference():
         assert [a.value for a in actions] == [a.value for a in jactions]
         assert resolve_policy_class(name, "mlp") is cls
         assert cls.SAVE_INTERVAL == jcls.SAVE_INTERVAL
-    # The recurrent policies route as in the reference; acer's is not ported.
-    for algo in ("ppo2", "a2c", "acktr"):
+    # The recurrent policies route as in the reference, acer's too.
+    for algo in ("ppo2", "a2c", "acer", "acktr"):
         for policy in ("lstm", "lnlstm", "cnnlstm", "cnnlnlstm"):
             assert (resolve_policy_class(algo, policy).__name__
                     == jresolve_policy_class(algo, policy).__name__)
-    for algo in ("trpo", "ppo1"):
+    for algo in ("trpo", "ppo1", "deepq"):
         with pytest.raises(AssertionError) as ref_err:
             jresolve_policy_class(algo, "lstm")
         with pytest.raises(AssertionError) as err:
             resolve_policy_class(algo, "lstm")
         assert str(err.value) == str(ref_err.value)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        resolve_policy_class("acer", "lstm")
 
 
-@pytest.mark.parametrize("algo", list(ALGOS))
+@pytest.mark.parametrize("algo", list(ALGOS) + list(REPLAY_ALGOS))
 def test_default_configs_equal(algo):
-    jcls, tcls = ALGOS[algo]
+    jcls, tcls = {**ALGOS, **REPLAY_ALGOS}[algo]
     jagent, tagent = jcls(), tcls(device="cpu")
     assert dataclasses.asdict(tagent.config) == dataclasses.asdict(jagent.config)
     assert tagent.num_envs == jagent.num_envs and tagent.policy_kind == jagent.policy_kind
+
+
+@pytest.mark.parametrize("algo", list(REPLAY_ALGOS))
+def test_replay_agents_signatures(algo):
+    """C1 on ACER, RecurrentACER and DQN: the reference's parameters in its
+    order, then the port's keyword-only ``gen`` and ``device``; DQN acts
+    greedily by default (srl_tpu/agents/dqn.py:288), ACER samples."""
+    jcls, tcls = REPLAY_ALGOS[algo]
+    for method in ("getAction", "getActionProba", "load"):
+        ref = inspect.signature(getattr(jcls, method)).parameters
+        ours = inspect.signature(getattr(tcls, method)).parameters
+        positional = [p for p in ours.values() if p.kind != p.KEYWORD_ONLY]
+        assert [p.name for p in positional] == [n for n in ref if n != "key"], method
+        assert [p.default for p in positional] == [
+            p.default for n, p in ref.items() if n != "key"], method
+        keyword = {n for n, p in ours.items() if p.kind == p.KEYWORD_ONLY}
+        assert keyword == ({"device"} if method == "load" else
+                           {"gen"} if method == "getAction" else set()), method
+    default = inspect.signature(tcls.getAction).parameters["deterministic"].default
+    assert default is (algo == "deepq")
 
 
 def test_logging_helpers_match(tmp_path, capsys):

@@ -63,9 +63,9 @@ def test_reference_loads_the_port_checkpoint(run_dir):
     assert jagent.policy.torso == "cnn" and jagent.config.n_steps == 128
 
 
-@pytest.mark.parametrize("flags", [["--algo", "acer"], ["--algo", "deepq"],
-                                   ["--algo", "acer", "--policy", "lstm"],
-                                   ["--algo", "sac"]], ids=" ".join)
+@pytest.mark.parametrize("flags", [["--algo", "sac"], ["--algo", "ddpg"], ["--algo", "ars"],
+                                   ["--algo", "cma-es"], ["--algo", "random_agent"]],
+                         ids=" ".join)
 def test_cli_rejects_flags_not_ported(flags, capsys):
     with pytest.raises(SystemExit):
         train.parse_args(["--device", "cpu"] + flags)

@@ -1,5 +1,8 @@
 """The port's training CLI beyond PPO2 on the CPU (MobileRobot ground
-truth, 4 envs): the other agents (ACKTR and the recurrent policies too),
+truth, 4 envs): the other agents (ACKTR, ACER, DQN and the recurrent
+policies too; ACER and DQN on MobileRobot1DGymEnv-v0 as the reference's
+test_train_cli_other_algos), DQN's flags (``--prioritized`` reaches no
+config field, as in the reference),
 ``--hyperparam``, checkpoint and resume (a mirror of
 tests/test_train_cli.py::test_checkpoint_resume) and its refusal for the
 agents whose ``learn`` takes no state, and fine-tuning with
@@ -11,6 +14,7 @@ keep them: it puts the loaded policy into ``agent.state``, and ``learn``
 then draws fresh parameters (srl_tpu/experiments/train.py:468-472,
 srl_tpu/agents/ppo.py:341-353; ROADMAP Queue C).
 """
+import dataclasses
 import json
 import os
 import pickle
@@ -20,7 +24,9 @@ import pytest
 import torch
 
 from srl_tpu.agents.a2c import A2C as JA2C
+from srl_tpu.agents.dqn import DQNConfig as JDQNConfig
 from srl_tpu.agents.registry import resolve_policy_class as jresolve_policy_class
+from srl_tpu.envs.mobile_robot import MobileRobot1DEnv as JMobile1D
 from srl_tpu.envs.mobile_robot import MobileRobotEnv as JMobile
 from srl_tpu.experiments import train as jtrain
 from srl_tpu_torch.agents.base import BaseRLAgent
@@ -164,7 +170,8 @@ def test_cli_trains_acktr_and_the_recurrent_policies(algo, policy, metric, name,
     assert type(jagent).__name__ == jcls.__name__
 
 
-@pytest.mark.parametrize("algo, policy", [("ppo2", "lstm"), ("acktr", "auto")])
+@pytest.mark.parametrize("algo, policy", [("ppo2", "lstm"), ("acktr", "auto"), ("acer", "auto"),
+                                          ("acer", "lstm"), ("deepq", "auto")])
 def test_cli_refuses_resume_where_learn_takes_no_state(algo, policy, tmp_path):
     extra = ["--hyperparam", "n_steps:16"] if algo == "ppo2" else []
     log_dir = run(tmp_path, "--algo", algo, "--policy", policy, "--num-timesteps", "100",
@@ -177,7 +184,7 @@ def test_cli_refuses_resume_where_learn_takes_no_state(algo, policy, tmp_path):
         assert f.read() == stored
 
 
-@pytest.mark.parametrize("algo, hyper", [("ppo2", ["n_steps:16"]), ("acktr", [])])
+@pytest.mark.parametrize("algo, hyper", [("ppo2", ["n_steps:16"]), ("acktr", []), ("acer", [])])
 def test_recurrent_fine_tune_at_lr_zero_keeps_the_weights(algo, hyper, tmp_path):
     common = ["--algo", algo, "--policy", "lstm", "--num-timesteps", "100"]
     first = run(tmp_path / "a", *common, *(["--hyperparam", *hyper] if hyper else []))
@@ -187,3 +194,45 @@ def test_recurrent_fine_tune_at_lr_zero_keeps_the_weights(algo, hyper, tmp_path)
     leaves = lambda d: [np.asarray(x) for x in _leaves(d["params"])]
     for a, b in zip(leaves(final_model(tuned, algo)), leaves(final_model(first, algo))):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("algo, policy, metric, name", [
+    ("acer", "auto", "loss_q", "acer"), ("acer", "lstm", "loss_q", "acer_lstm"),
+    ("deepq", "auto", "td_loss", "deepq")])
+def test_cli_trains_acer_and_deepq(algo, policy, metric, name, tmp_path):
+    """As the reference's tests/test_train_cli.py::test_train_cli_other_algos
+    runs them: MobileRobot1DGymEnv-v0 ground truth, 4 envs, 1500 steps."""
+    log_dir = train.main(["--algo", algo, "--policy", policy, "--env",
+                          "MobileRobot1DGymEnv-v0", "--srl-model", "ground_truth",
+                          "--num-timesteps", "1500", "--log-dir", str(tmp_path),
+                          "--num-envs", "4", "--no-vis", "--device", "cpu"])
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        lines = [json.loads(x) for x in f]
+    if algo == "acer":  # 20 iterations of 20 x 4 steps, replays from the 4th on
+        assert [e["replays"] for e in lines] == [0.0] * 3 + [4.0] * 17
+    else:  # 7 chunks of 64 x 4 steps; a TD update every 4th vector step from step 500
+        assert [e["td_updates"] for e in lines] == [0, 1, 16, 16, 16, 16, 16]
+    trained = [e for e in lines if algo == "acer" or e["td_updates"]]
+    assert trained and all(np.isfinite(e[metric]) for e in trained)
+    payload = final_model(log_dir, algo)
+    assert payload["name"] == name
+    jcls = jresolve_policy_class(algo, policy)
+    jagent = jcls.load(os.path.join(log_dir, f"{algo}_final_model.pkl"), env=JMobile1D())
+    assert type(jagent).__name__ == jcls.__name__
+
+
+def test_cli_deepq_flags_reach_the_config_as_in_the_reference(tmp_path):
+    """``--buffer-size`` and ``--dueling`` name DQNConfig fields and reach the
+    config; ``--prioritized`` names none (the field is
+    ``prioritized_replay``), so ``--prioritized 0`` changes nothing, in the
+    reference's CLI as in the port's (ROADMAP Queue C)."""
+    fields = {f.name for f in dataclasses.fields(JDQNConfig)}
+    assert "prioritized" not in fields and {"prioritized_replay", "buffer_size",
+                                           "dueling"} <= fields
+    log_dir = run(tmp_path, "--algo", "deepq", "--num-timesteps", "100", "--prioritized", "0",
+                  "--buffer-size", "300", "--dueling", "0")
+    config = final_model(log_dir, "deepq")["config"]
+    assert config["prioritized_replay"] is True
+    assert config["buffer_size"] == 300 and not config["dueling"]
+    with open(os.path.join(log_dir, "args.json")) as f:
+        assert json.load(f)["prioritized"] == 0
