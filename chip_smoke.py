@@ -82,7 +82,26 @@ Phases, each reported on its own lines; any failure exits non-zero:
    pixels for 2 chunks of 64 x 256 steps (render2d exactly 129 launches, 32
    TD updates, a target copy wherever the global step modulo 500 is below
    256), its ``deepq`` model reloaded and acting greedily as the trained
-   agent.
+   agent;
+10. the last five agents at the reference's widths, each agent's default
+   config, through the training CLI with the counts set to 0 just before
+   each run: 10a, SAC with the Nature CNN on the continuous Kuka pixel path
+   (``-c``, 3-d actions) for 2 chunks of 64 x 256 steps (render3d exactly
+   129 launches, 128 updates from its 3.76 GB store, every loss finite,
+   ``alpha`` moved), its ``sac`` model reloaded and acting as the trained
+   agent (``tanh`` of the mean, within 1e-6) on two steps of 8 Kuka frames;
+   10b, DDPG with the Nature CNN on continuous MobileRobot 224x224 pixels
+   (render2d exactly 129, 128 updates from its 15.05 GB store, OU noise),
+   its ``ddpg`` model reloaded likewise; 10c, ARS on the Kuka pixel path
+   with the shaped reward (20 envs, ``M`` [37,632, 6]) for 2 generations
+   (render3d exactly 522, ``M`` moved), its ``ars`` model reloaded and
+   acting as the trained agent; 10d, CMA-ES with its CNN on MobileRobot 224x224 pixels (20 envs,
+   n = 7,572, the 7,572 x 7,572 float64 covariance and its ``eigh`` on the
+   card, whose seconds it prints) for 2 generations (render2d exactly 522,
+   ``sigma`` finite), ``best_model`` acting as the reloaded ``cma-es``
+   pickle; 10e, the random agent on the Kuka pixel path (256 envs, one
+   chunk of 256 steps: render3d exactly 257), its rate the Kuka env and
+   render rate with no policy in the loop.
 
 The line before the last is a JSON object with each kernel's numbers, the
 last ``{"ok": true, "device": {...}}``. Needs the card and the rest of the
@@ -745,9 +764,10 @@ ACKTR_ARGS = with_flags(MOBILE_ARGS, algo="acktr", num_timesteps=9400)
 LSTM_ACKTR_ARGS = with_flags(KUKA_ARGS, algo="acktr", policy="cnnlstm", num_timesteps=9400)
 
 
-def acts_alike(torch, saved, trained, env, what, dones_seq=(None, None)) -> list:
+def acts_alike(torch, saved, trained, env, what, dones_seq=(None, None), atol=0.0) -> list:
     """Deterministic actions of ``saved`` and ``trained`` on two steps of 8
-    envs of ``env`` (each step's ``dones`` from ``dones_seq``), equal."""
+    envs of ``env`` (each step's ``dones`` from ``dones_seq``), equal
+    (continuous ones within ``atol``)."""
     from srl_tpu_torch.core.env import VecEnv
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -758,7 +778,7 @@ def acts_alike(torch, saved, trained, env, what, dones_seq=(None, None)) -> list
         frames = obs.cpu().numpy()
         a, b = (agent.getAction(frames, dones, deterministic=True)
                 for agent in (saved, trained))
-        if not np.array_equal(a, b):
+        if a.shape != b.shape or not np.allclose(a, b, rtol=0.0, atol=atol):
             raise AssertionError(f"{what}: the reloaded model acts {a.tolist()}, the "
                                  f"trained agent {b.tolist()}")
         acts.append(a.tolist())
@@ -947,6 +967,140 @@ def replay_agents(torch, train, counters) -> dict:
     return out
 
 
+# Step 10's runs at the reference's widths, each agent's default config:
+# SAC (-c: 3-d continuous actions) on the Kuka pixel path and DDPG (-c) on
+# MobileRobot 224x224 pixels, each 2 chunks of 64 x 256 steps (while fewer
+# than int(20,000 * 1.1) steps are done), an update every vector step from
+# env step 100; ARS (20 envs) on the Kuka pixel path and CMA-ES (20 envs,
+# its CNN) on MobileRobot pixels, each int(10,000 * 1.1) // (260 * 20) = 2
+# generations of a reset and 260 steps; the random agent on the Kuka pixel
+# path (256 envs), one chunk of 256 steps.
+SAC_ARGS = with_flags(KUKA_ARGS, algo="sac", num_timesteps=20000) + ["-c"]
+DDPG_ARGS = with_flags(MOBILE_ARGS, algo="ddpg", num_timesteps=20000) + ["-c"]
+# ARS's Kuka run takes the shaped reward (minus the distance to the button
+# each step): from M = 0, no member presses the button within 2 generations
+# of the sparse reward, every return ties at 0, and M cannot move.
+ARS_ARGS = with_flags(KUKA_ARGS, algo="ars", num_timesteps=10000) + ["--shape-reward"]
+CMAES_ARGS = with_flags(MOBILE_ARGS, algo="cma-es", num_timesteps=10000)
+RANDOM_ARGS = with_flags(KUKA_ARGS, algo="random_agent", num_timesteps=50000)
+OFF_POLICY_KEYS = ("critic_loss", "actor_loss", "mean_reward_per_step")
+ES_KEYS = ("mean_return", "max_return")
+CMAES_KEYS = ("mean_return", "best_return", "sigma", "eigh_s")
+
+
+def off_policy_expected(args, chunk: int = 64) -> tuple:
+    """(vector steps, updates) of a SAC or DDPG run with the default config
+    (learning_starts 100, an update every vector step from there): 128 and
+    128 for SAC_ARGS and DDPG_ARGS."""
+    n = flag(args, "--num-envs")
+    steps = chunk * -(-int(flag(args, "--num-timesteps") * 1.1) // (chunk * n))
+    return steps, sum(n * k >= 100 for k in range(1, steps + 1))
+
+
+def es_expected(args, population: int) -> int:
+    """Render launches of an ARS or CMA-ES run: a reset and 260 steps a
+    generation, int(num_timesteps * 1.1) // (260 P) generations (522 for
+    ARS_ARGS and CMAES_ARGS)."""
+    return (260 + 1) * max(1, int(flag(args, "--num-timesteps") * 1.1) // (260 * population))
+
+
+def last_agents(torch, train, counters) -> dict:
+    """Step 10: SAC (10a, the slice's main path) and ARS (10c) and the
+    random agent (10e) on the Kuka pixel path, DDPG (10b) and CMA-ES (10d)
+    on MobileRobot 224x224 pixels."""
+    from srl_tpu_torch.agents.ars import ARS
+    from srl_tpu_torch.agents.base import BaseRLAgent
+    from srl_tpu_torch.agents.cma_es import CMAES
+    from srl_tpu_torch.agents.ddpg import DDPG
+    from srl_tpu_torch.agents.random_agent import RandomAgent
+    from srl_tpu_torch.agents.sac import SAC
+
+    out = {}
+    for step, args, cls, kernel in (
+            ("10a sac (cnn) KukaButtonGymEnv-v0 raw_pixels -c", SAC_ARGS, SAC, "render3d"),
+            ("10b ddpg (cnn) MobileRobotGymEnv-v0 raw_pixels 224x224 -c", DDPG_ARGS, DDPG,
+             "render2d")):
+        n_steps, updates_expected = off_policy_expected(args)
+        with tempfile.TemporaryDirectory() as root, Trained(cls) as trained:
+            log_dir, seconds, launches, entries = run_cli(
+                torch, train, args + ["--log-dir", root, "--device", "cuda"], counters,
+                f"{step} 256 envs", OFF_POLICY_KEYS)
+            updates = sum(e["updates"] for e in entries)
+            if launches[kernel] != n_steps + 1 or updates != updates_expected:
+                raise AssertionError(f"{step}: {kernel} launched {launches[kernel]} times "
+                                     f"(not {n_steps + 1}), {updates} updates (not "
+                                     f"{updates_expected})")
+            agent = trained.agent
+            alphas = [e["alpha"] for e in entries if "alpha" in e]
+            if cls is SAC and not (all(map(math.isfinite, alphas)) and alphas[-1] != 1.0):
+                raise AssertionError(f"{step}: alpha by chunk {alphas}")
+            buffer = agent.state.buffer
+            store_gb = (buffer.obs.nbytes + buffer.next_obs.nbytes) / 1e9
+            path = os.path.join(log_dir, f"{cls.name}_final_model.pkl")
+            saved = cls.load(path, agent.env, None, device="cuda")
+            acts = acts_alike(torch, saved, agent, agent.env, step, atol=1e-6)
+            name = BaseRLAgent._load_pickle(path)["name"]
+            if name != cls.name:
+                raise AssertionError(f"{step}: the policy pickle is named {name}")
+            log(f"[last] {step}: {updates} updates, a {tuple(buffer.obs.shape)} "
+                f"{buffer.obs.dtype} store of obs and next_obs ({store_gb:.2f} GB on the card); "
+                f"the saved '{name}' model reloads and acts as the trained agent on two steps "
+                f"of 8 frames (first actions {np.round(acts[0][0], 4).tolist()}); critic_loss "
+                f"by chunk " + ", ".join(f"{e['critic_loss']:.4g}" for e in entries)
+                + ("; alpha by chunk " + ", ".join(f"{a:.6g}" for a in alphas)
+                   if alphas else ""))
+            out[step.split()[0]] = launches[kernel]
+            trained.agent = agent = saved = buffer = None  # the store's GB
+        torch.cuda.empty_cache()
+
+    for step, args, cls, kernel, keys in (
+            ("10c ars KukaButtonGymEnv-v0 raw_pixels", ARS_ARGS, ARS, "render3d", ES_KEYS),
+            ("10d cma-es (cnn) MobileRobotGymEnv-v0 raw_pixels 224x224", CMAES_ARGS, CMAES,
+             "render2d", CMAES_KEYS)):
+        with tempfile.TemporaryDirectory() as root, Trained(cls) as trained:
+            log_dir, seconds, launches, entries = run_cli(
+                torch, train, args + ["--log-dir", root, "--device", "cuda"], counters,
+                f"{step} 20 envs", keys)
+            agent = trained.agent
+            expected = es_expected(args, agent.num_envs)
+            if launches[kernel] != expected or agent.num_envs != 20:
+                raise AssertionError(f"{step}: {kernel} launched {launches[kernel]} times, not "
+                                     f"{expected}; {agent.num_envs} envs")
+            if cls is ARS:
+                changed = bool(agent.M.abs().max() > 0)
+                detail = f"M {tuple(agent.M.shape)} moved: max |M| {float(agent.M.abs().max()):.4g}"
+            else:
+                changed = math.isfinite(entries[-1]["sigma"])
+                detail = (f"n = {agent.dim}, C {agent.dim}x{agent.dim} float64; sigma by "
+                          f"generation " + ", ".join(f"{e['sigma']:.6g}" for e in entries)
+                          + "; eigh " + ", ".join(f"{e['eigh_s']:.3f}" for e in entries)
+                          + " s on the card")
+            if not changed:
+                raise AssertionError(f"{step}: {detail}")
+            path = os.path.join(log_dir, f"{cls.name}_final_model.pkl")
+            saved = cls.load(path, agent.env, None, device="cuda")
+            acts = acts_alike(torch, saved, agent, agent.env, step)
+            log(f"[last] {step}: {len(entries)} generations; {detail}; the saved '{cls.name}' "
+                f"model reloads and acts as the trained agent on two steps of 8 frames: {acts}; "
+                f"mean return by generation " + ", ".join(f"{e['mean_return']:.4g}"
+                                                          for e in entries))
+            out[step.split()[0]] = launches[kernel]
+
+    with tempfile.TemporaryDirectory() as root:
+        log_dir, seconds, launches, entries = run_cli(
+            torch, train, RANDOM_ARGS + ["--log-dir", root, "--device", "cuda"], counters,
+            "10e random_agent KukaButtonGymEnv-v0 raw_pixels 256 envs", ("mean_reward_per_step",))
+        if launches["render3d"] != 257 or len(entries) != 1:
+            raise AssertionError(f"10e: render3d launched {launches['render3d']} times, not 257")
+        saved = RandomAgent.load(os.path.join(log_dir, "random_agent_final_model.pkl"), None,
+                                 None, device="cuda")
+        log(f"[last] 10e: the Kuka env and render rate with no policy in the loop, "
+            f"{entries[-1]['fps']:.0f} env-steps/s over 256 x 256 steps (the agent's own "
+            f"count, after the reset); the saved model reloads with {saved.num_envs} envs")
+        out["10e"] = launches["render3d"]
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1066,6 +1220,12 @@ def main() -> int:
     replay_launches = replay_agents(torch, train, counters)
     log(f"[replay] launches: {json.dumps(replay_launches)}; step 9 took "
         f"{time.perf_counter() - t_step9:.1f} s")
+    t_step10 = time.perf_counter()
+
+    # 10. SAC, DDPG, ARS, CMA-ES and the random agent.
+    last_launches = last_agents(torch, train, counters)
+    log(f"[last] launches: {json.dumps(last_launches)}; step 10 took "
+        f"{time.perf_counter() - t_step10:.1f} s")
     log(f"[done] {time.perf_counter() - t_start:.1f} s after start-up")
 
     print(json.dumps({"kernels": [{
@@ -1077,6 +1237,9 @@ def main() -> int:
         "recompute_obs_launches": surface_launches["recompute_obs"],
         "lstm_ppo_launches": lstm_launches["lstm_ppo"],
         "acer_launches": replay_launches["9a"],
+        "sac_launches": last_launches["10a"],
+        "ars_launches": last_launches["10c"],
+        "random_agent_launches": last_launches["10e"],
         "max_abs_err": max(r3_err, mb["max_abs_err"]),
         "ms": r3_ms,
         "plain_ms": r3_plain_ms,
@@ -1091,6 +1254,8 @@ def main() -> int:
         "launches": mobile_launches["render2d"],
         "acktr_launches": lstm_launches["8c"],
         "dqn_launches": replay_launches["9c"],
+        "ddpg_launches": last_launches["10b"],
+        "cmaes_launches": last_launches["10d"],
         "max_abs_err": r2_err,
         "ms": r2_ms,
         "plain_ms": r2_plain_ms,

@@ -325,10 +325,13 @@ class BaseRLAgent:
         """(training state, meta) of a checkpoint of either package; pass the
         state as ``learn(initial_state=...)``. The state is the reference's
         ``PPOState`` as a ``bridge.Record``; ``state.torch_generator`` is the
-        port's generator state, None in a reference checkpoint."""
+        port's generator state, None in a reference checkpoint. The state
+        itself is None in a checkpoint of ARS, CMA-ES or the random agent
+        written before their ``learn`` ended (they set it at its end)."""
         d = bridge.read_reference_pickle(path)
         state = d["state"]
-        state.torch_generator = d.get("torch_generator")
+        if isinstance(state, bridge.Record):
+            state.torch_generator = d.get("torch_generator")
         return state, d["meta"]
 
     def restore(self, ckpt, seed: int) -> PPOState:

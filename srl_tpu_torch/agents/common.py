@@ -12,6 +12,7 @@ import torch
 from srl_tpu_torch.core.env import VecEnv, VecEnvState, state_map
 from srl_tpu_torch.core.normalize import RunningNorm
 from srl_tpu_torch.core.numerics import fma
+from srl_tpu_torch.models.distributions import Categorical
 
 
 @dataclasses.dataclass
@@ -146,3 +147,38 @@ def explained_variance(y_pred: torch.Tensor, y_true: torch.Tensor) -> torch.Tens
     var_y = torch.var(y_true, unbiased=False)
     ev = 1 - torch.var(y_true - y_pred, unbiased=False) / var_y
     return torch.where(var_y == 0, torch.nan, ev)
+
+
+def population_actions(logits: torch.Tensor, discrete: bool, deterministic: bool,
+                       gen: torch.Generator, gumbel=None) -> torch.Tensor:
+    """The evolution strategies' actions from each member's logits [N, A]:
+    discrete, the argmax (``deterministic``) or a categorical draw (the
+    argmax of the logits plus Gumbel noise, ``gumbel`` [N, A] when given,
+    else drawn from ``gen``), as int32; continuous, the logits clipped to
+    [-1, 1]."""
+    if not discrete:
+        return torch.clamp(logits, -1.0, 1.0)
+    if deterministic:
+        return torch.argmax(logits, -1).to(torch.int32)
+    if gumbel is None:
+        return Categorical(logits).sample(gen).to(torch.int32)
+    return torch.argmax(logits + torch.as_tensor(gumbel).to(logits), -1).to(torch.int32)
+
+
+@torch.no_grad()
+def population_returns(vec_env: VecEnv, act: Callable, gen: torch.Generator, n_steps: int,
+                       reset_noise: Optional[dict] = None) -> torch.Tensor:
+    """Each env's return over a fresh episode, one population member per
+    env in lock-step (srl_tpu/agents/ars.py:89-118, cma_es.py:107-131): a
+    reset, then exactly ``n_steps`` steps of ``act(obs, t)``; an env steps
+    on (auto-reset) after its first ``done``, but its return stops counting
+    there. Returns [N] float32."""
+    vstate, obs = vec_env.reset(gen, reset_noise)
+    ret = torch.zeros(vec_env.num_envs, dtype=torch.float32, device=obs.device)
+    done_once = torch.zeros_like(ret)
+    for t in range(n_steps):
+        vstate, tr = vec_env.step(vstate, act(obs, t), gen)
+        ret = ret + tr.reward * (1.0 - done_once)
+        done_once = torch.maximum(done_once, tr.done.to(torch.float32))
+        obs = tr.obs
+    return ret

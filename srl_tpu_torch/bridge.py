@@ -17,6 +17,11 @@
   policy pickles (``{"name", "config", "num_envs", "policy_kind",
   "normalize_obs", "params", "obs_norm"}``, ACKTR's with ``cnn_geom``) hold
   the reference's trees, so each package reads the other's.
+* ``module_state_dict_to_flax`` / ``module_flax_to_state_dict`` do the same
+  for networks whose top-level modules the reference names otherwise (SAC's
+  actor and ``TwinQ``, DDPG's actor and critic), and ``cmaes_layout`` /
+  ``cmaes_unravel`` read CMA-ES's flat parameter vectors in the layout of
+  the reference's ``ravel_pytree``.
 * ``srl_state_dict_to_flax`` / ``srl_flax_to_state_dict`` do the same for
   the SRL networks (``srl/nets.py``), whose deconv kernels are also
   spatially flipped.
@@ -28,10 +33,11 @@
 * ``read_reference_pickle`` / ``write_reference_pickle`` read and write the
   reference's full training-state checkpoints (``checkpoint.pkl``: a
   ``PPOState``, ``RecurrentPPOState``, ``ACKTRState``,
-  ``RecurrentACKTRState``, ``ACERState``, ``RecurrentACERState`` or
-  ``DQNState`` of params, optimizer state, ``VecEnvState``, observations,
-  ``RunningNorm``, key and update counter, with ACER's
-  ``SegmentBuffer``/``RecurrentSegmentBuffer`` and DQN's ``ReplayBuffer``)
+  ``RecurrentACKTRState``, ``ACERState``, ``RecurrentACERState``,
+  ``DQNState``, ``SACState`` or ``DDPGState`` of params, optimizer state,
+  ``VecEnvState``, observations, ``RunningNorm``, key and update counter,
+  with ACER's ``SegmentBuffer``/``RecurrentSegmentBuffer`` and the replay
+  agents' ``ReplayBuffer``)
   by class name,
   importing neither ``srl_tpu`` nor optax: the reference's classes become
   ``Record``s, and ``to_port`` / ``to_reference`` convert their state
@@ -207,6 +213,76 @@ def acktr_params_from_reference(params: dict) -> Dict[str, torch.Tensor]:
     return out
 
 
+def module_state_dict_to_flax(state_dict: Dict[str, torch.Tensor], names: Dict[str, str]) -> dict:
+    """A state_dict whose top-level modules the reference names otherwise
+    (``names``: port module -> Flax module; other names stay) -> the
+    ``{"params": {...}}`` tree: SAC's actor and ``TwinQ``, DDPG's actor and
+    critic (``MlpTorso_0``/``NatureCnnTorso_0``, ``Dense_0``, ``q1_out`` ...)."""
+    tree: dict = {}
+    for name, value in state_dict.items():
+        parts = name.split(".")
+        parts[0] = names.get(parts[0], parts[0])
+        if parts[-1] == "weight":
+            parts[-1] = "kernel"
+        node = tree
+        for key in parts[:-1]:
+            node = node.setdefault(key, {})
+        node[parts[-1]] = _to_flax(name, value.detach().to("cpu", torch.float32).numpy())
+    return {"params": tree}
+
+
+def module_flax_to_state_dict(tree: dict, names: Dict[str, str]) -> Dict[str, torch.Tensor]:
+    """The converse of ``module_state_dict_to_flax`` (CPU float32)."""
+    inv = {v: k for k, v in names.items()}
+    out = {}
+
+    def walk(node, prefix):
+        for key, value in node.items():
+            if isinstance(value, dict):
+                walk(value, prefix + [key])
+                continue
+            parts = prefix + ["weight" if key == "kernel" else key]
+            parts[0] = inv.get(parts[0], parts[0])
+            name = ".".join(parts)
+            out[name] = torch.tensor(_from_flax(name, np.asarray(value, np.float32)))
+
+    walk(tree["params"], [])
+    return out
+
+
+# CMA-ES's policies as the reference's ``ravel_pytree`` lays them out in one
+# flat vector: modules in sorted order, ``bias`` before ``kernel``, conv
+# kernels HWIO, Dense kernels [in, out].
+def cmaes_layout(obs_shape, out_dim: int, hidden: int = 100) -> list:
+    """[(module, leaf, shape)] of CMA-ES's ``_MLPPolicy`` (in -> ``hidden``
+    relu -> out) or, for an image ``obs_shape``, ``_CNNPolicy`` (three
+    stride-2 SAME convs of 8, 16 and 32 channels, each followed by a 2x2
+    max-pool, then a Dense), in the flat vector's order."""
+    if len(obs_shape) != 3:
+        n_in = int(np.prod(obs_shape))
+        return [("Dense_0", "bias", (hidden,)), ("Dense_0", "kernel", (n_in, hidden)),
+                ("Dense_1", "bias", (out_dim,)), ("Dense_1", "kernel", (hidden, out_dim))]
+    h, w, c = obs_shape
+    layout = []
+    for i, (k, n_out) in enumerate(((5, 8), (3, 16), (3, 32))):
+        layout += [(f"Conv_{i}", "bias", (n_out,)), (f"Conv_{i}", "kernel", (k, k, c, n_out))]
+        h, w, c = (-(-h // 2)) // 2, (-(-w // 2)) // 2, n_out  # SAME stride 2, VALID pool
+    return layout + [("Dense_0", "bias", (out_dim,)), ("Dense_0", "kernel", (h * w * c, out_dim))]
+
+
+def cmaes_unravel(flat, layout) -> Dict[str, object]:
+    """``{"module/leaf": [..., *shape]}`` of flat vectors ``[..., n]`` (numpy
+    or torch) in ``cmaes_layout`` order."""
+    out, at = {}, 0
+    for module, leaf, shape in layout:
+        size = int(np.prod(shape))
+        out[f"{module}/{leaf}"] = flat[..., at:at + size].reshape(tuple(flat.shape[:-1]) + shape)
+        at += size
+    if at != flat.shape[-1]:
+        raise ValueError(f"a flat vector of {flat.shape[-1]} for a layout of {at}")
+    return out
+
+
 def torso_kind_of(tree: dict) -> str:
     """``mlp`` or ``cnn`` from the torso module name in a Flax tree."""
     for kind, name in _TORSO_NAMES.items():
@@ -339,6 +415,8 @@ REFERENCE_DATACLASSES = (
     "srl_tpu.agents.acer.RecurrentACERState",
     "srl_tpu.agents.acer.RecurrentSegmentBuffer",
     "srl_tpu.agents.dqn.DQNState",
+    "srl_tpu.agents.sac.SACState",
+    "srl_tpu.agents.ddpg.DDPGState",
     "srl_tpu.agents.buffers.ReplayBuffer",
     "srl_tpu.core.env.VecEnvState",
     "srl_tpu.core.normalize.RunningNorm",

@@ -13,12 +13,18 @@ a2c --policy cnnlnlstm``; ``--algo acktr [--policy cnnlstm]``; ``--algo
 acer [--policy cnnlstm]``, profiled once its buffer holds ``replay_start``
 segments, so the iteration replays; ``--algo deepq``, whose "update" is
 ``train_freq`` vector steps, one TD update among them, once past
-``learning_starts``), the agent's own defaults otherwise.
+``learning_starts``; ``--algo sac|ddpg``, continuous actions, a window of 8
+vector steps past ``learning_starts``, each with its update, split into
+acting, env dynamics, render and insert, and the update into its parts;
+``--algo ars|cma-es``, a generation of their 20-member populations, its
+rollout split into the population's policy, env dynamics and render, its
+update (CMA-ES: ``eigh``, ``ask``, ``tell``); ``--algo random_agent``, the
+env and render rate with no policy), the agent's own defaults otherwise.
 
     python -m srl_tpu_torch.experiments.profile_slice [--env ENV_ID]
         [--srl-model NAME [--srl-model-path CHECKPOINT]] [--num-envs 256]
-        [--mixed-envs ENV_ID ...] [--algo ppo2|a2c|acktr|acer|deepq]
-        [--policy KIND]
+        [--mixed-envs ENV_ID ...] [--policy KIND] [--algo
+        ppo2|a2c|acktr|acer|deepq|sac|ddpg|ars|cma-es|random_agent]
 
 After one warm-up update it reports, on the host clock with the device
 synchronised around each part:
@@ -52,21 +58,28 @@ The last line is one JSON object with the same numbers. Needs a card.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from srl_tpu_torch.agents.acer import ACER, acer_logit_grads
 from srl_tpu_torch.agents.acktr import ACKTR
+from srl_tpu_torch.agents.ars import ARS
 from srl_tpu_torch.agents.base import RecurrentActing
+from srl_tpu_torch.agents.cma_es import CMAES, cma_constants
 from srl_tpu_torch.agents.common import (collect_recurrent_rollout, collect_rollout,
-                                         compute_gae)
+                                         compute_gae, population_returns)
 from srl_tpu_torch.agents.dqn import DQN
+from srl_tpu_torch.agents.off_policy import OffPolicyAgent
+from srl_tpu_torch.agents.random_agent import RandomAgent
 from srl_tpu_torch.agents.recurrent_ppo import RecurrentPolicyMixin, RecurrentPPO2
 from srl_tpu_torch.agents.registry import resolve_policy_class
+from srl_tpu_torch.agents.sac import SAC
 from srl_tpu_torch.core.mixed_env import MixedEnv, MixedVecEnv
 from srl_tpu_torch.envs.registry import registered_env
 from srl_tpu_torch.experiments.train import make_with_options
@@ -329,6 +342,209 @@ def dqn_profile(agent, state, gen, args, smi) -> dict:
     return result
 
 
+def _report(result: dict, lines: list) -> dict:
+    for line in lines:
+        print(line)
+    for name, ms in result["top_kernels_ms"].items():
+        print(f"  {ms:9.2f} ms  {name}")
+    print(json.dumps(result))
+    return result
+
+
+def _device_fields(windows) -> dict:
+    """Busy and idle share, launches and top kernels of profiled windows
+    [((seconds, busy us, launches, {kernel: us}), times in the unit)]."""
+    seconds = sum(w[0] * k for w, k in windows)
+    busy_us = sum(w[1] * k for w, k in windows)
+    by_kernel = {}
+    for (_, _, _, kernels), k in windows:
+        for name, us in kernels.items():
+            by_kernel[name] = by_kernel.get(name, 0.0) + us * k
+    top = sorted(by_kernel.items(), key=lambda kv: kv[1], reverse=True)[:12]
+    return {"profiled_s": seconds, "device_busy_s": busy_us / 1e6,
+            "device_idle_share": 1.0 - busy_us / 1e6 / seconds,
+            "kernel_launches": sum(w[2] * k for w, k in windows),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "top_kernels_ms": {name[:80]: us / 1e3 for name, us in top}}
+
+
+def off_policy_profile(agent, state, gen, args, smi) -> dict:
+    """SAC or DDPG past ``learning_starts``: the seconds of a window of
+    vector steps (each with its update), a vector step's parts (acting, env
+    dynamics, render, insert; auto-resets left out) and an update's parts
+    (the batch's draw and gather, then ``update_parts``: the target's
+    forward, the critic's forward and backward, its Adam step, the actor's
+    forward and backward, its Adam step, SAC's temperature, Polyak), each
+    synchronised, then the window under ``torch.profiler``."""
+    cfg, n, env = agent.config, agent.num_envs, agent.env
+    while state.global_step < cfg.learning_starts + 2 * n:
+        state = agent.train_step(state, gen)[0]
+    window = 8
+
+    def steps():
+        for _ in range(window):
+            agent.train_step(state, gen)
+
+    _, t_window = _sync_time(steps)
+    parts = dict(act=0.0, env_step=0.0, render=0.0, insert=0.0)
+    for _ in range(window):
+        norm_obs, t_norm = _sync_time(lambda: agent.observe_(state))
+        actions, t = _sync_time(lambda: agent.act(state, norm_obs, gen))
+        parts["act"] += t_norm + t
+        noise = env.draw_step_noise(gen, n)
+        (env_state, reward, done), t = _sync_time(
+            lambda: env.apply_step(state.vstate.env_state, actions, noise))
+        parts["env_step"] += t
+        obs, t = _sync_time(lambda: env.observe(env_state))
+        parts["render"] += t
+        next_norm = state.obs_norm.normalize(obs) if state.obs_norm is not None else obs
+        _, t = _sync_time(lambda: state.buffer.add_batch(norm_obs, actions, reward, next_norm,
+                                                         done))
+        parts["insert"] += t
+        state.vstate.env_state, state.obs = env_state, obs
+    batch, t_batch = _sync_time(lambda: agent.batch(state, None, gen))
+    noise = ((tuple(torch.randn((cfg.batch_size, agent.act_dim), generator=gen, device="cuda")
+                    for _ in range(2)),) if isinstance(agent, SAC) else ())
+    update_parts, _ = agent.update_parts(state, batch, *noise)
+    update = {"draw_gather": t_batch}
+    for name, part in update_parts:
+        update[name] = _sync_time(part)[1]
+    dev = _device_fields([(profiled(steps), 1.0)])
+    result = {
+        "card": smi, "algo": agent.name, "env": args.env, "srl_model": args.srl_model,
+        "num_envs": n, "window_vector_steps": window, "window_s": t_window,
+        "env_steps_per_s": window * n / t_window,
+        "per_vector_step_s": {k: v / window for k, v in parts.items()},
+        "per_update_s": update, "update_s": sum(update.values()),
+        **dev, "kernel_launches_per_vector_step": dev["kernel_launches"] / window,
+        "buffer_gb": (state.buffer.obs.nbytes + state.buffer.next_obs.nbytes) / 2**30,
+    }
+    return _report(result, [
+        f"card: {smi}; {agent.name} ({agent.torso}) on {args.env} {args.srl_model}, {n} envs",
+        f"{window} vector steps, each with an update: {t_window:.4f} s, "
+        f"{result['env_steps_per_s']:.0f} env-steps/s; per vector step: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in result["per_vector_step_s"].items()),
+        "per update (s, synchronised): " + ", ".join(f"{k} {v:.4f}" for k, v in update.items())
+        + f"; total {result['update_s']:.4f}",
+        f"profiled window {dev['profiled_s']:.3f} s: device busy {dev['device_busy_s']:.3f} s, "
+        f"idle share {dev['device_idle_share']:.3f}, {dev['kernel_launches']} launches "
+        f"({result['kernel_launches_per_vector_step']:.1f} per vector step); store "
+        f"{result['buffer_gb']:.2f} GiB; peak device memory {dev['peak_memory_gb']:.1f} GiB"])
+
+
+def es_profile(agent, gen, args, smi) -> dict:
+    """ARS or CMA-ES: the seconds of a generation (after one warm-up), its
+    rollout's parts over the ``max_episode_steps`` steps (the population's
+    policy, env dynamics, render; synchronised, auto-resets left out), and
+    its update's parts (ARS: the step of ``M``; CMA-ES: ``eigh``, ``ask``
+    and ``tell``, the covariance update); then under ``torch.profiler`` the
+    first ``PROFILE_STEPS`` rollout steps, scaled to the generation's."""
+    cfg, env, n = agent.config, agent.env, agent.num_envs
+    T = cfg.max_episode_steps
+    if isinstance(agent, ARS):
+        M, norm = agent.M, agent.obs_norm
+        delta = torch.randn((cfg.num_population,) + tuple(M.shape), generator=gen,
+                            device="cuda")
+        act = agent.population_policy(M, delta, norm, gen)[0]
+        run = lambda: agent.generation(M, norm, gen)
+        r = run()[2]
+        update = {"update_M": lambda: agent.update(M, delta, r)}
+    else:
+        k = cma_constants(cfg.num_population, agent.dim)
+        s = agent.initial_cma(np.full(agent.dim, cfg.mu))
+        z = torch.as_tensor(np.random.RandomState(args.seed).randn(cfg.num_population, agent.dim),
+                            device="cuda")
+
+        def run():
+            s.B, s.D = agent.eigen(s.C)
+            y, pop = agent.ask(s, z)
+            return agent.tell(s, y, pop, agent.eval_population(pop.float(), gen).cpu().numpy(),
+                              k)
+
+        s = run()
+        y, pop = agent.ask(s, z)
+        act = agent.population_policy(pop.float(), gen)
+        r = np.zeros(cfg.num_population, np.float32)
+        update = {"eigh": lambda: agent.eigen(s.C), "ask": lambda: agent.ask(s, z),
+                  "tell": lambda: agent.tell(s, y, pop, r, k)}
+    _, t_gen = _sync_time(run)
+    parts = dict(policy=0.0, env_step=0.0, render=0.0)
+    vstate, obs = agent.vec_env.reset(gen)
+    env_state = vstate.env_state
+    with torch.no_grad():
+        for t in range(T):
+            actions, dt = _sync_time(lambda: act(obs, t))
+            parts["policy"] += dt
+            noise = env.draw_step_noise(gen, n)
+            (env_state, _, _), dt = _sync_time(lambda: env.apply_step(env_state, actions, noise))
+            parts["env_step"] += dt
+            obs, dt = _sync_time(lambda: env.observe(env_state))
+            parts["render"] += dt
+    update_s = {name: _sync_time(fn)[1] for name, fn in update.items()}
+    # The rollout alone under the profiler: traced, cuSOLVER's eigh of the
+    # 7,572-dim covariance did not finish in 15 minutes on the H100.
+    steps = min(T, PROFILE_STEPS)
+    dev = _device_fields([
+        (profiled(lambda: population_returns(agent.vec_env, act, gen, steps)), T / steps)])
+    result = {
+        "card": smi, "algo": agent.name, "env": args.env, "srl_model": args.srl_model,
+        "num_envs": n, "steps_per_generation": T, "generation_s": t_gen,
+        "env_steps_per_s": T * n / t_gen, "rollout_split_s": parts, "update_split_s": update_s,
+        **dev, "kernel_launches_per_env_step": dev["kernel_launches"] / T,
+        "parameters": int(agent.M.numel()) if isinstance(agent, ARS) else agent.dim,
+    }
+    return _report(result, [
+        f"card: {smi}; {agent.name} on {args.env} {args.srl_model}, {n} envs, "
+        f"{result['parameters']} parameters",
+        f"generation {t_gen:.3f} s ({T} steps), {result['env_steps_per_s']:.0f} env-steps/s; "
+        f"rollout split (s over {T} steps, synchronised): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()),
+        "update split (s, synchronised): " + ", ".join(f"{k} {v:.4f}"
+                                                       for k, v in update_s.items()),
+        f"profiled rollout (scaled to {T} steps) {dev['profiled_s']:.3f} s: device busy "
+        f"{dev['device_busy_s']:.3f} s, idle share {dev['device_idle_share']:.3f}, "
+        f"{dev['kernel_launches']:.0f} launches ({result['kernel_launches_per_env_step']:.1f} per "
+        f"env step); peak device memory {dev['peak_memory_gb']:.1f} GiB"])
+
+
+def random_agent_profile(agent, gen, args, smi) -> dict:
+    """The random agent: the env and render rate with no policy in the loop,
+    over ``PROFILE_STEPS`` steps (after a warm-up chunk), split into the
+    draw, env dynamics and render, then under ``torch.profiler``."""
+    env, n = agent.env, agent.num_envs
+    vstate, _ = agent.vec_env.reset(gen)
+
+    def steps(k):
+        vs = vstate
+        for _ in range(k):
+            vs = agent.vec_env.step(vs, agent.actions(gen), gen)[0]
+
+    steps(8)
+    _, t_window = _sync_time(lambda: steps(PROFILE_STEPS))
+    parts = dict(draw=0.0, env_step=0.0, render=0.0)
+    env_state = vstate.env_state
+    for _ in range(PROFILE_STEPS):
+        actions, dt = _sync_time(lambda: agent.actions(gen))
+        parts["draw"] += dt
+        noise = env.draw_step_noise(gen, n)
+        (env_state, _, _), dt = _sync_time(lambda: env.apply_step(env_state, actions, noise))
+        parts["env_step"] += dt
+        _, dt = _sync_time(lambda: env.observe(env_state))
+        parts["render"] += dt
+    dev = _device_fields([(profiled(lambda: steps(PROFILE_STEPS)), 1.0)])
+    result = {"card": smi, "algo": agent.name, "env": args.env, "srl_model": args.srl_model,
+              "num_envs": n, "window_steps": PROFILE_STEPS, "window_s": t_window,
+              "env_steps_per_s": PROFILE_STEPS * n / t_window, "split_s": parts, **dev,
+              "kernel_launches_per_env_step": dev["kernel_launches"] / PROFILE_STEPS}
+    return _report(result, [
+        f"card: {smi}; random_agent on {args.env} {args.srl_model}, {n} envs",
+        f"{PROFILE_STEPS} steps {t_window:.3f} s, {result['env_steps_per_s']:.0f} env-steps/s; "
+        "split (s, synchronised): " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()),
+        f"profiled window {dev['profiled_s']:.3f} s: device busy {dev['device_busy_s']:.3f} s, "
+        f"idle share {dev['device_idle_share']:.3f}, {result['kernel_launches_per_env_step']:.1f} "
+        f"launches per env step; peak device memory {dev['peak_memory_gb']:.1f} GiB"])
+
+
 def rollout_split(agent, state, gen, n_steps: int) -> dict:
     """Seconds per part over ``n_steps`` steps, synchronising between parts;
     env dynamics and render per family of a mixed batch."""
@@ -378,7 +594,8 @@ def main(argv=None) -> dict:
                         choices=list(registered_env.keys()),
                         help="profile one learner on a batch of these env families")
     parser.add_argument("--algo", default="ppo2",
-                        choices=["ppo2", "a2c", "acktr", "acer", "deepq"])
+                        choices=["ppo2", "a2c", "acktr", "acer", "deepq", "sac", "ddpg", "ars",
+                                 "cma-es", "random_agent"])
     parser.add_argument("--policy", default="auto",
                         choices=["auto", "mlp", "cnn", "lstm", "lnlstm", "cnnlstm",
                                  "cnnlnlstm"])
@@ -394,7 +611,8 @@ def main(argv=None) -> dict:
     # A mixed batch shares 224x224 frames, so Kuka traces at render scale 2
     # and upsamples there too.
     options = dict(srl_model=args.srl_model, render_scale=2,
-                   coarse_obs=args.srl_model == "raw_pixels" and not args.mixed_envs)
+                   coarse_obs=args.srl_model == "raw_pixels" and not args.mixed_envs,
+                   is_discrete=args.algo not in ("sac", "ddpg"))
     wrap = lambda e: e
     if args.srl_model_path is not None:
         from srl_tpu_torch.srl.models import SRLEncodedEnv, loadSRLModel
@@ -406,15 +624,23 @@ def main(argv=None) -> dict:
                        oob_action="modulo")
     else:
         env = wrap(make_with_options(args.env, options))
+    cls = resolve_policy_class(args.algo, args.policy)
     kwargs = {} if args.policy == "auto" else {"policy": args.policy}
-    agent = resolve_policy_class(args.algo, args.policy)(
-        env=env, num_envs=args.num_envs, device="cuda", **kwargs)
+    if "num_envs" in inspect.signature(cls.__init__).parameters:  # not ARS's, CMA-ES's
+        kwargs["num_envs"] = args.num_envs
+    agent = cls(env=env, device="cuda", **kwargs)
     agent.n_updates = 3
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    state = agent.init_state(gen, args.seed)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    if isinstance(agent, (ARS, CMAES)):
+        return es_profile(agent, gen, args, smi)
+    if isinstance(agent, RandomAgent):
+        return random_agent_profile(agent, gen, args, smi)
+    state = agent.init_state(gen, args.seed)
+    if isinstance(agent, OffPolicyAgent):
+        return off_policy_profile(agent, state, gen, args, smi)
     if isinstance(agent, DQN):
         agent._total_timesteps = 100 * agent.config.learning_starts
         return dqn_profile(agent, state, gen, args, smi)

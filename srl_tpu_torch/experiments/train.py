@@ -1,9 +1,10 @@
 """Training entry point (counterpart of srl_tpu/experiments/train.py).
 
-The reference CLI for the agents ported so far (``--algo
-ppo2|ppo1|a2c|trpo|acktr|acer|deepq`` from ``agents/registry``, and
-``--policy lstm|lnlstm|cnnlstm|cnnlnlstm`` for ppo2, a2c, acer and acktr,
-routed to the Recurrent* agents by ``resolve_policy_class``) on every registered env (Kuka, MobileRobot,
+The reference CLI for all twelve of its agents (``--algo
+ppo2|ppo1|a2c|trpo|acktr|acer|deepq|sac|ddpg|ars|cma-es|random_agent`` from
+``agents/registry``, and ``--policy lstm|lnlstm|cnnlstm|cnnlnlstm`` for
+ppo2, a2c, acer and acktr, routed to the Recurrent* agents by
+``resolve_policy_class``) on every registered env (Kuka, MobileRobot,
 Omnirobot, CarRacing) with every ``--srl-model`` of the registry, optionally
 with ``--num-stack`` frames, or on a mixed batch of env families
 (``--mixed-envs``: one learner over contiguous per-family slices,
@@ -14,10 +15,14 @@ reference resolves it: ``--latest`` takes the newest
 ``srl_logs/{env}/**/srl_model.pkl``, else ``--srl-config-file`` names its
 checkpoint under the env's ``log_folder``; the env (each family of a mixed
 batch) is then wrapped in ``SRLEncodedEnv`` (render -> encode) before any
-frame stacking.
+frame stacking. SAC and DDPG take continuous actions only (``-c``; without
+it the reference's AssertionError), deepq discrete ones only.
 
 The algo's config is its defaults, then the CLI flags that name a config
-field (A2C's ``--lr-schedule``), then ``--hyperparam name:value``. The run
+field (A2C's ``--lr-schedule``), then ``--hyperparam name:value``; the agent
+gets ``--num-envs`` and ``--policy`` where its constructor takes them (ARS
+and CMA-ES run one env per population member and ignore ``--num-envs``, as
+in the reference). The run
 directory has the reference's layout, ``{log-dir}/{env}/{srl_model}/{algo}/
 {datetime}/`` with ``args.json``, ``env_globals.json``, ``0.monitor.csv``,
 ``metrics.jsonl`` (a line per callback, the losses included),
@@ -29,17 +34,20 @@ package), and ``--resume LOG_DIR`` continues that run in place (PPO2 and
 PPO1, as in the reference; the other agents' ``learn`` takes no state to
 resume from, and the CLI refuses with the reference's message).
 ``--load-rl-model-path`` trains on from a saved policy's parameters and
-normalizer, with a fresh optimizer and env (the reference's run discards
-the loaded weights: ROADMAP Queue C). The default config is the resolved
-class's (the recurrent PPO2's is ``lstm_ppo_config``); ``--hyperparam``
-parses against the registered class, as in the reference. DQN's
-``--buffer-size`` and ``--dueling`` name config fields and reach its
-config; ``--prioritized`` names none (the field is ``prioritized_replay``),
-so it changes nothing, as in the reference (ROADMAP Queue C). A checkpoint
-of ACER or DQN holds its replay store too: about 10 GB for ACER at the Kuka
-pixel run's width (256 envs, 112x112 frames). Not ported yet,
-and refused with a message: the other algos. ``--port`` and ``--no-vis``
-are accepted and draw nothing.
+normalizer (ARS: ``M`` and its normalizer; CMA-ES: the mean at the saved
+``best_model``), with a fresh optimizer and env (the reference's run
+discards the loaded weights: ROADMAP Queue C). The default config is the
+resolved class's (the recurrent PPO2's is ``lstm_ppo_config``);
+``--hyperparam`` parses against the registered class, as in the reference.
+Flags reach the config only where they name a field: DQN's
+``--buffer-size`` and ``--dueling``, DDPG's ``--noise-*`` and
+``--batch-size`` do; DQN's ``--prioritized`` (the field is
+``prioritized_replay``) and DDPG's ``--memory-limit`` (the field is
+``buffer_size``) do not, so they change nothing, as in the reference
+(ROADMAP Queue C). A checkpoint of ACER, DQN, SAC or DDPG holds its replay
+store too: about 10 GB for ACER and 3.8 GB for SAC at the Kuka pixel run's
+width (256 envs, 112x112 frames), 15 GB for DDPG at MobileRobot 224x224's.
+``--port`` and ``--no-vis`` are accepted and draw nothing.
 
 Usage (the README's pixel run, the quickstart, an encoder trained by
 ``srl_tpu_torch.experiments.train_srl``, a resume):
@@ -85,9 +93,7 @@ from srl_tpu_torch.utils.srl_models_yaml import read_srl_models
 
 N_EPISODES_EVAL = 100
 DEFAULT_NUM_ENVS = 16
-# The reference's --algo and --policy choices.
-REFERENCE_ALGOS = ["a2c", "acer", "acktr", "ars", "cma-es", "ddpg", "deepq", "ppo1",
-                   "ppo2", "random_agent", "sac", "trpo"]
+# The reference's --policy choices.
 POLICIES = ["auto", "mlp", "cnn", "lstm", "lnlstm", "cnnlstm", "cnnlnlstm"]
 # args.json entries a resume keeps from its own command line (the device
 # too: a run may resume on another device type).
@@ -99,7 +105,7 @@ def build_parser(argv=None) -> argparse.ArgumentParser:
     agent then adds its own flags (``customArguments``)."""
     parser = argparse.ArgumentParser(
         description="Train RL algorithms on the registered envs (PyTorch port)")
-    parser.add_argument("--algo", default="ppo2", choices=REFERENCE_ALGOS)
+    parser.add_argument("--algo", default="ppo2", choices=list(registered_rl.keys()))
     parser.add_argument("--env", default="KukaButtonGymEnv-v0",
                         choices=list(registered_env.keys()))
     parser.add_argument("--seed", type=int, default=0)
@@ -167,9 +173,6 @@ def build_parser(argv=None) -> argparse.ArgumentParser:
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
 
     args, _ = parser.parse_known_args(argv)
-    if args.algo not in registered_rl:
-        parser.error(f"--algo {args.algo} is not ported to srl_tpu_torch yet; use "
-                     "srl_tpu.experiments.train for it")
     registered_rl[args.algo][0](device="cpu").customArguments(parser)
     return parser
 
@@ -304,7 +307,8 @@ def make_callback(log_dir: str, args, monitor: MonitorWriter, algo,
         ep_lengths = _locals["episode_lengths"]
         while state["n_logged"] < len(ep_returns):
             i = state["n_logged"]
-            monitor.write_episode(ep_returns[i], ep_lengths[i])
+            # The evolution strategies log returns without lengths.
+            monitor.write_episode(ep_returns[i], ep_lengths[i] if i < len(ep_lengths) else 0)
             state["n_logged"] += 1
 
         update = _locals["update"]
@@ -347,18 +351,22 @@ def make_callback(log_dir: str, args, monitor: MonitorWriter, algo,
 
 
 def algo_kwargs(algo_class, args, parser, hyperparams: dict, device) -> dict:
-    """The agent's constructor arguments: the CLI's, and its config from the
-    defaults, then the CLI flags that name a config field, then the parsed
-    ``--hyperparam`` values."""
+    """The agent's constructor arguments: those of the CLI's that it takes,
+    and its config from the defaults, then the CLI flags that name a config
+    field, then the parsed ``--hyperparam`` values."""
     sig = inspect.signature(algo_class.__init__).parameters
-    kwargs = {"num_envs": args.num_envs or DEFAULT_NUM_ENVS, "device": device}
-    if args.policy != "auto":
+    kwargs = {"device": device}
+    if "num_envs" in sig:
+        kwargs["num_envs"] = args.num_envs or DEFAULT_NUM_ENVS
+    if args.policy != "auto" and "policy" in sig:
         kwargs["policy"] = args.policy
     if args.recompute_obs:
         if "recompute_obs" in sig:
             kwargs["recompute_obs"] = True
         else:
             printYellow(f"--recompute-obs has no effect on {args.algo}")
+    if "config" not in sig:
+        return kwargs
     default = algo_class(device="cpu").config
     cfg = dataclasses.asdict(default)
     cli = {k: v for k, v in vars(args).items()
@@ -400,8 +408,7 @@ def main(argv=None) -> str:
     # reference (the recurrent PPO2 declares no table of its own).
     hyperparams = algo_class.parserHyperParam(args.hyperparam)
     algo_class = resolve_policy_class(args.algo, args.policy)
-    if resume_state is not None and "initial_state" not in inspect.signature(
-            algo_class.learn).parameters:
+    if args.resume and "initial_state" not in inspect.signature(algo_class.learn).parameters:
         raise ValueError(f"--resume is not supported for algo '{args.algo}' yet")
 
     env = build_env(args, device)

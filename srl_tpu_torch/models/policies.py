@@ -127,11 +127,13 @@ class NatureCnnTorso(nn.Module):
         return x.to(torch.float32)
 
 
-def make_torso(obs_shape, kind: str, input_scale: int = 1) -> nn.Module:
-    """``MlpTorso`` over the flattened observation (``mlp``) or the Nature
-    CNN (``cnn``)."""
+def make_torso(obs_shape, kind: str, input_scale: int = 1, hidden=(64, 64),
+               extra: int = 0) -> nn.Module:
+    """``MlpTorso(hidden)`` over the flattened observation and ``extra``
+    more inputs (a critic's actions) (``mlp``), or the Nature CNN
+    (``cnn``)."""
     if kind == "mlp":
-        return MlpTorso(int(np.prod(obs_shape)))
+        return MlpTorso(int(np.prod(obs_shape)) + extra, hidden)
     return NatureCnnTorso(obs_shape, input_scale)
 
 

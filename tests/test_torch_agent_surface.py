@@ -8,13 +8,14 @@
   (continuous actions, the Gaussian's mean, and probabilities within rtol
   1e-6).
 * ``getOptParam`` tables, ``parserHyperParam`` values and its
-  AssertionErrors (ACER's and DQN's too), the registry's entries (ACKTR's,
-  ACER's and DQN's too), the recurrent policies' routes (ACER's too) and
-  the enums' values: equal.
-* The default configs of the four agents, ACER, RecurrentACER and DQN:
-  equal. The C1 signatures of ACER, RecurrentACER and DQN: the reference's
-  parameters and defaults (DQN's ``deterministic=True``), then the port's
-  keyword-only ``gen`` and ``device``.
+  AssertionErrors (ACER's, DQN's, SAC's, DDPG's, ARS's and CMA-ES's too),
+  the registry's twelve entries, the recurrent policies' routes (ACER's
+  too; the other algos' AssertionError) and the enums' values: equal.
+* The default configs of the four agents, ACER, RecurrentACER, DQN, SAC,
+  DDPG, ARS and CMA-ES: equal. The C1 signatures of ACER, RecurrentACER,
+  DQN, SAC, DDPG, ARS, CMA-ES and the random agent: the reference's
+  parameters and defaults (``deterministic=True`` for DQN, SAC, DDPG, ARS
+  and CMA-ES), then the port's keyword-only ``gen`` and ``device``.
 * ``utils.logging``, ``utils.monitor`` (``MonitorWriter(append=True)``,
   ``load_csv``, ``compute_mean_reward``) and ``RunningNorm.save``/``load``:
   each file written by one package reads in the other, exactly.
@@ -32,11 +33,16 @@ from srl_tpu.agents import AlgoType as JAlgoType
 from srl_tpu.agents.a2c import A2C as JA2C
 from srl_tpu.agents.acer import ACER as JACER
 from srl_tpu.agents.acer import RecurrentACER as JRecurrentACER
+from srl_tpu.agents.ars import ARS as JARS
+from srl_tpu.agents.cma_es import CMAES as JCMAES
+from srl_tpu.agents.ddpg import DDPG as JDDPG
 from srl_tpu.agents.dqn import DQN as JDQN
 from srl_tpu.agents.ppo import PPO2 as JPPO2
 from srl_tpu.agents.ppo1 import PPO1 as JPPO1
+from srl_tpu.agents.random_agent import RandomAgent as JRandomAgent
 from srl_tpu.agents.registry import registered_rl as jregistry
 from srl_tpu.agents.registry import resolve_policy_class as jresolve_policy_class
+from srl_tpu.agents.sac import SAC as JSAC
 from srl_tpu.agents.trpo import TRPO as JTRPO
 from srl_tpu.core.normalize import RunningNorm as JNorm
 from srl_tpu.envs.mobile_robot import MobileRobotEnv as JMobile
@@ -45,10 +51,15 @@ from srl_tpu.utils import monitor as jmonitor
 from srl_tpu_torch.agents import ActionType, AlgoType
 from srl_tpu_torch.agents.a2c import A2C
 from srl_tpu_torch.agents.acer import ACER, RecurrentACER
+from srl_tpu_torch.agents.ars import ARS
+from srl_tpu_torch.agents.cma_es import CMAES
+from srl_tpu_torch.agents.ddpg import DDPG
 from srl_tpu_torch.agents.dqn import DQN
 from srl_tpu_torch.agents.ppo import PPO2
 from srl_tpu_torch.agents.ppo1 import PPO1
+from srl_tpu_torch.agents.random_agent import RandomAgent
 from srl_tpu_torch.agents.registry import registered_rl, resolve_policy_class
+from srl_tpu_torch.agents.sac import SAC
 from srl_tpu_torch.agents.trpo import TRPO
 from srl_tpu_torch.core.normalize import RunningNorm
 from srl_tpu_torch.envs.mobile_robot import MobileRobotEnv
@@ -62,6 +73,11 @@ ALGOS = {"ppo2": (JPPO2, PPO2), "ppo1": (JPPO1, PPO1), "a2c": (JA2C, A2C),
 # The discrete-only agents of the replay slice.
 REPLAY_ALGOS = {"acer": (JACER, ACER), "acer_lstm": (JRecurrentACER, RecurrentACER),
                 "deepq": (JDQN, DQN)}
+# The last five: the continuous off-policy agents, the evolution strategies
+# and the random agent.
+LAST_ALGOS = {"sac": (JSAC, SAC), "ddpg": (JDDPG, DDPG), "ars": (JARS, ARS),
+              "cma-es": (JCMAES, CMAES), "random_agent": (JRandomAgent, RandomAgent)}
+ALL = {**ALGOS, **REPLAY_ALGOS, **LAST_ALGOS}
 
 
 @pytest.mark.parametrize("continuous", [False, True], ids=["discrete", "continuous"])
@@ -98,9 +114,10 @@ def test_reference_call_forms(algo, continuous, tmp_path):
     assert tagent.getAction(obs, dones).shape == sampled.shape
 
 
-@pytest.mark.parametrize("algo", list(ALGOS) + ["acer", "deepq"])
+@pytest.mark.parametrize("algo", list(ALGOS) + ["acer", "deepq", "sac", "ddpg", "ars",
+                                                 "cma-es"])
 def test_opt_param_tables_and_parsing(algo):
-    jcls, tcls = {**ALGOS, **REPLAY_ALGOS}[algo]
+    jcls, tcls = ALL[algo]
     table = tcls.getOptParam()
     assert table == jcls.getOptParam()
     good = [f"{k}:{'16' if kind is int else '0.5'}" for k, (kind, _) in table.items()
@@ -120,8 +137,9 @@ def test_opt_param_tables_and_parsing(algo):
 def test_registry_and_enums_match_reference():
     assert {e.name: e.value for e in AlgoType} == {e.name: e.value for e in JAlgoType}
     assert {e.name: e.value for e in ActionType} == {e.name: e.value for e in JActionType}
-    assert sorted(registered_rl.keys()) == ["a2c", "acer", "acktr", "deepq", "ppo1", "ppo2",
-                                            "trpo"]
+    assert sorted(registered_rl.keys()) == sorted(jregistry.keys()) == [
+        "a2c", "acer", "acktr", "ars", "cma-es", "ddpg", "deepq", "ppo1", "ppo2", "random_agent",
+        "sac", "trpo"]
     for name in registered_rl:
         cls, algo_type, actions = registered_rl[name]
         jcls, jtype, jactions = jregistry[name]
@@ -135,7 +153,7 @@ def test_registry_and_enums_match_reference():
         for policy in ("lstm", "lnlstm", "cnnlstm", "cnnlnlstm"):
             assert (resolve_policy_class(algo, policy).__name__
                     == jresolve_policy_class(algo, policy).__name__)
-    for algo in ("trpo", "ppo1", "deepq"):
+    for algo in ("trpo", "ppo1", "deepq", "sac", "ddpg", "ars", "cma-es", "random_agent"):
         with pytest.raises(AssertionError) as ref_err:
             jresolve_policy_class(algo, "lstm")
         with pytest.raises(AssertionError) as err:
@@ -143,12 +161,14 @@ def test_registry_and_enums_match_reference():
         assert str(err.value) == str(ref_err.value)
 
 
-@pytest.mark.parametrize("algo", list(ALGOS) + list(REPLAY_ALGOS))
+@pytest.mark.parametrize("algo", list(ALGOS) + list(REPLAY_ALGOS) + ["sac", "ddpg", "ars",
+                                                                      "cma-es"])
 def test_default_configs_equal(algo):
-    jcls, tcls = {**ALGOS, **REPLAY_ALGOS}[algo]
+    jcls, tcls = ALL[algo]
     jagent, tagent = jcls(), tcls(device="cpu")
     assert dataclasses.asdict(tagent.config) == dataclasses.asdict(jagent.config)
-    assert tagent.num_envs == jagent.num_envs and tagent.policy_kind == jagent.policy_kind
+    for name in ("num_envs", "policy_kind"):  # the evolution strategies have neither
+        assert getattr(tagent, name, None) == getattr(jagent, name, None)
 
 
 @pytest.mark.parametrize("algo", list(REPLAY_ALGOS))
@@ -169,6 +189,31 @@ def test_replay_agents_signatures(algo):
                            {"gen"} if method == "getAction" else set()), method
     default = inspect.signature(tcls.getAction).parameters["deterministic"].default
     assert default is (algo == "deepq")
+
+
+@pytest.mark.parametrize("algo", list(LAST_ALGOS))
+def test_last_agents_signatures(algo):
+    """C1 on SAC, DDPG, ARS, CMA-ES and the random agent: the reference's
+    parameters in its order and with its defaults (``deterministic=True``
+    but for the random agent's ``False``), then the port's keyword-only
+    ``gen`` and ``device``; the constructors take the reference's
+    parameters (no ``num_envs`` for the evolution strategies) and
+    ``device``."""
+    jcls, tcls = LAST_ALGOS[algo]
+    for method in ("getAction", "getActionProba", "load"):
+        ref = inspect.signature(getattr(jcls, method)).parameters
+        ours = inspect.signature(getattr(tcls, method)).parameters
+        positional = [p for p in ours.values() if p.kind != p.KEYWORD_ONLY]
+        assert [p.name for p in positional] == [n for n in ref if n != "key"], method
+        assert [p.default for p in positional] == [
+            p.default for n, p in ref.items() if n != "key"], method
+        keyword = {n for n, p in ours.items() if p.kind == p.KEYWORD_ONLY}
+        assert keyword == ({"device"} if method == "load" else
+                           {"gen"} if method == "getAction" else set()), method
+    default = inspect.signature(tcls.getAction).parameters["deterministic"].default
+    assert default is (algo != "random_agent")
+    ref_init = list(inspect.signature(jcls.__init__).parameters)
+    assert list(inspect.signature(tcls.__init__).parameters) == ref_init + ["device"]
 
 
 def test_logging_helpers_match(tmp_path, capsys):

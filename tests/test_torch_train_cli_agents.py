@@ -1,9 +1,11 @@
 """The port's training CLI beyond PPO2 on the CPU (MobileRobot ground
 truth, 4 envs): the other agents (ACKTR, ACER, DQN and the recurrent
-policies too; ACER and DQN on MobileRobot1DGymEnv-v0 as the reference's
-test_train_cli_other_algos), DQN's flags (``--prioritized`` reaches no
-config field, as in the reference),
-``--hyperparam``, checkpoint and resume (a mirror of
+policies too; ACER, DQN and the random agent on MobileRobot1DGymEnv-v0 as
+the reference's test_train_cli_other_algos; SAC with ``-c`` on 2 envs as
+its test_train_cli_continuous_sac; DDPG, ARS and CMA-ES), DQN's and DDPG's
+flags (``--prioritized`` and ``--memory-limit`` reach no config field, as
+in the reference), SAC and DDPG refused without ``-c`` as in the
+reference, ``--hyperparam``, checkpoint and resume (a mirror of
 tests/test_train_cli.py::test_checkpoint_resume) and its refusal for the
 agents whose ``learn`` takes no state, and fine-tuning with
 ``--load-rl-model-path``.
@@ -24,7 +26,9 @@ import pytest
 import torch
 
 from srl_tpu.agents.a2c import A2C as JA2C
+from srl_tpu.agents.base import BaseRLAgent as JBase
 from srl_tpu.agents.dqn import DQNConfig as JDQNConfig
+from srl_tpu.agents.registry import registered_rl as jregistry
 from srl_tpu.agents.registry import resolve_policy_class as jresolve_policy_class
 from srl_tpu.envs.mobile_robot import MobileRobot1DEnv as JMobile1D
 from srl_tpu.envs.mobile_robot import MobileRobotEnv as JMobile
@@ -171,9 +175,11 @@ def test_cli_trains_acktr_and_the_recurrent_policies(algo, policy, metric, name,
 
 
 @pytest.mark.parametrize("algo, policy", [("ppo2", "lstm"), ("acktr", "auto"), ("acer", "auto"),
-                                          ("acer", "lstm"), ("deepq", "auto")])
+                                          ("acer", "lstm"), ("deepq", "auto"), ("sac", "auto"),
+                                          ("ddpg", "auto"), ("ars", "auto"), ("cma-es", "auto"),
+                                          ("random_agent", "auto")])
 def test_cli_refuses_resume_where_learn_takes_no_state(algo, policy, tmp_path):
-    extra = ["--hyperparam", "n_steps:16"] if algo == "ppo2" else []
+    extra = {"ppo2": ["--hyperparam", "n_steps:16"], "sac": ["-c"], "ddpg": ["-c"]}.get(algo, [])
     log_dir = run(tmp_path, "--algo", algo, "--policy", policy, "--num-timesteps", "100",
                   "--checkpoint-interval", "1", *extra)
     with open(os.path.join(log_dir, "args.json")) as f:
@@ -236,3 +242,89 @@ def test_cli_deepq_flags_reach_the_config_as_in_the_reference(tmp_path):
     assert config["buffer_size"] == 300 and not config["dueling"]
     with open(os.path.join(log_dir, "args.json")) as f:
         assert json.load(f)["prioritized"] == 0
+
+
+@pytest.mark.parametrize("algo, argv", [
+    ("random_agent", ["--env", "MobileRobot1DGymEnv-v0", "--num-envs", "4",
+                      "--num-timesteps", "1500"]),
+    ("sac", ["-c", "--num-envs", "2", "--num-timesteps", "600", "--checkpoint-interval", "2"]),
+    ("ddpg", ["-c", "--num-envs", "2", "--num-timesteps", "600", "--checkpoint-interval", "2",
+              "--memory-limit", "1000"]),
+    ("ars", ["--num-timesteps", "1500"]),
+    ("cma-es", ["--num-timesteps", "1500"])])
+def test_cli_trains_the_last_agents(algo, argv, tmp_path):
+    """As the reference's tests/test_train_cli.py runs random_agent
+    (test_train_cli_other_algos: MobileRobot1DGymEnv-v0 ground truth, 4
+    envs, 1500 steps) and SAC (test_train_cli_continuous_sac: ``-c``, 2
+    envs, 600 steps); DDPG as SAC, its ``--memory-limit`` reaching no config
+    field (the field is ``buffer_size``); ARS and CMA-ES one generation of
+    their populations (``--num-envs`` ignored). The reference reads each
+    final model, and SAC's and DDPG's checkpoints."""
+    base = ["--algo", algo, "--srl-model", "ground_truth", "--no-vis", "--device", "cpu",
+            "--log-dir", str(tmp_path)]
+    log_dir = train.main(base + (argv if "--env" in argv else ["--env", "MobileRobotGymEnv-v0"]
+                                 + argv))
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        lines = [json.loads(x) for x in f]
+    payload = final_model(log_dir, algo)
+    assert payload["name"] == algo
+    env = JMobile1D() if algo == "random_agent" else JMobile(is_discrete="-c" not in argv)
+    jagent = jregistry[algo][0].load(os.path.join(log_dir, f"{algo}_final_model.pkl"), env=env)
+    assert type(jagent).__name__ == jregistry[algo][0].__name__
+    if algo in ("sac", "ddpg"):
+        # 6 chunks of 64 x 2 steps (to 660 steps), an update a step from env
+        # step 100 on; a checkpoint after every second chunk.
+        assert [e["updates"] for e in lines] == [15, 64, 64, 64, 64, 64]
+        assert all(np.isfinite(e[k]) for e in lines for k in ("critic_loss", "actor_loss"))
+        state, meta = JBase.load_checkpoint(os.path.join(log_dir, "checkpoint.pkl"))
+        assert type(state).__name__ == {"sac": "SACState", "ddpg": "DDPGState"}[algo]
+        assert int(state.global_step) == meta["num_timesteps"] == 640
+        assert type(state.buffer).__name__ == "ReplayBuffer"
+    elif algo == "random_agent":  # 2 chunks of 256 x 4 steps
+        assert [e["num_timesteps"] for e in lines] == [1024, 2048]
+    else:  # one generation of 260 steps of the population
+        assert len(lines) == 1 and np.isfinite(lines[0]["mean_return"])
+        with open(os.path.join(log_dir, "0.monitor.csv")) as f:
+            assert len(f.read().splitlines()) == 3  # the header lines and one return
+    if algo == "ddpg":
+        assert payload["config"]["buffer_size"] == 50000
+        with open(os.path.join(log_dir, "args.json")) as f:
+            assert json.load(f)["memory_limit"] == 1000
+
+
+def test_cli_refuses_discrete_sac_and_ddpg_as_the_reference():
+    """SAC and DDPG take continuous actions only: without ``-c`` both CLIs
+    stop at their action-type check, before the continuous-only override
+    behind it (srl_tpu/experiments/train.py:395-412)."""
+    for algo in ("sac", "ddpg"):
+        argv = GT + ["--algo", algo, "--num-timesteps", "100", "--log-dir", "unused"]
+        with pytest.raises(AssertionError) as ref_err:
+            jtrain.main(argv)
+        with pytest.raises(AssertionError) as err:
+            train.main(argv + ["--device", "cpu"])
+        assert str(err.value) == str(ref_err.value) == (
+            f"Error: {algo} does not support discrete actions")
+    with pytest.raises(AssertionError, match="deepq does not support continuous"):
+        train.main(GT + ["--algo", "deepq", "-c", "--device", "cpu", "--log-dir", "unused"])
+
+
+@pytest.mark.parametrize("algo, argv", [("ars", ["--hyperparam", "step_size:0"]),
+                                        ("sac", ["-c", "--hyperparam", "learning_rate:0"])])
+def test_fine_tune_starts_from_the_loaded_policy(algo, argv, tmp_path):
+    """``--load-rl-model-path`` starts ``learn`` from the loaded ``M`` (ARS)
+    or parameters (SAC); at a zero step size they stay bit for bit. The
+    reference's run discards them (ROADMAP Queue C)."""
+    common = ["--algo", algo, "--num-timesteps", "200"] + argv[:1 if algo == "sac" else 0]
+    first = run(tmp_path / "a", *common)
+    path = os.path.join(first, f"{algo}_final_model.pkl")
+    tuned = final_model(run(tmp_path / "b", *common, "--load-rl-model-path", path, "--seed", "4",
+                            *argv[-2:]), algo)
+    loaded = final_model(first, algo)
+    if algo == "ars":
+        np.testing.assert_array_equal(tuned["M"], loaded["M"])
+        assert np.abs(loaded["M"]).max() > 0
+    else:
+        for key in ("actor_params", "critic_params"):
+            for a, b in zip(_leaves(tuned[key]), _leaves(loaded[key])):
+                np.testing.assert_array_equal(a, b)
+        assert tuned["log_alpha"] == loaded["log_alpha"] != 0
