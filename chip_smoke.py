@@ -101,12 +101,35 @@ Phases, each reported on its own lines; any failure exits non-zero:
    ``sigma`` finite), ``best_model`` acting as the reloaded ``cma-es``
    pickle; 10e, the random agent on the Kuka pixel path (256 envs, one
    chunk of 256 steps: render3d exactly 257), its rate the Kuka env and
-   render rate with no policy in the loop.
+   render rate with no policy in the loop;
+11. replays and the host-side tools. Each of six kept runs replayed by
+   ``srl_tpu_torch.replay.enjoy`` at 256 envs for 64 steps with ``--plot``,
+   the counts set to 0 just before each: 11a the Kuka pixel run of step 4
+   and 11b the MobileRobot pixel run, each with ``--render`` (render3d,
+   render2d exactly 1 + 64 + 7 launches: the reset, the steps, the strip's
+   frames, each frame against the twin's render of its state); 11c the
+   PPO2 cnnlstm run of 8a (reloaded as RecurrentPPO2, render3d 65); 11d
+   SAC's continuous Kuka run of 10a (65); 11e the mixed Kuka + Omnirobot
+   run of step 6 (the pod rebuilt, render3d 72 for its Kuka half and the
+   strip); 11f the MobileRobot SRL serving run of step 5 ([N, 3] encoder
+   states, render2d 72). Each reloaded agent acts as the trained one, and
+   every return is finite. Then, over the smoke's own log root: a pipeline
+   grid of 2 seeds of the quickstart, a Hyperband search (``--max-eval 3``)
+   on MobileRobot ground truth, plots, aggregate_plots, compare_plots and
+   gather_results, the live server's ``data.json``, ``dataset_fusioner`` of
+   two recorded MobileRobot datasets and ``change_to_relative_pos``, and a
+   frame store round trip of [2048, 224, 224, 3] uint8. Whether matplotlib
+   and pyzmq import is printed; without matplotlib only the figures are
+   left out.
 
 The line before the last is a JSON object with each kernel's numbers, the
 last ``{"ok": true, "device": {...}}``. Needs the card and the rest of the
 repository; imports nothing of JAX.
 """
+import contextlib
+import copy
+import dataclasses
+import http.client
 import itertools
 import json
 import math
@@ -448,14 +471,32 @@ def run_cli(torch, train, argv, counters, what, keys=PPO_KEYS):
     return log_dir, seconds, launches, entries
 
 
-def drive(torch, train, argv, counters, what, obs_shape=None, keys=PPO_KEYS):
+# Step 11 replays runs of steps 4-10: their log dirs go under KEPT["root"]
+# (made by main), and KEPT[name] is (the run's log dir, the trained agent).
+KEPT = {}
+
+
+def log_root(keep=None):
+    """The log root of a CLI run: KEPT["root"]/logs for a run that step 11
+    replays, else a temporary directory."""
+    if keep is None:
+        return tempfile.TemporaryDirectory()
+    return contextlib.nullcontext(os.path.join(KEPT["root"], "logs"))
+
+
+def drive(torch, train, argv, counters, what, obs_shape=None, keys=PPO_KEYS, keep=None):
     """A CLI run in a temporary log dir: (seconds, launches per kernel,
     metrics lines). With ``obs_shape``, the run's observation normalizer
-    must have that shape (the observations the agent saw)."""
+    must have that shape (the observations the agent saw). With ``keep``,
+    the run and its trained agent are kept as KEPT[keep]."""
     algo = argv[argv.index("--algo") + 1]
-    with tempfile.TemporaryDirectory() as tmp:
+    policy = argv[argv.index("--policy") + 1] if "--policy" in argv else "auto"
+    cls = train.resolve_policy_class(algo, policy)
+    with log_root(keep) as tmp, Trained(cls, best=keep is not None) as trained:
         log_dir, seconds, launches, entries = run_cli(
             torch, train, argv + ["--log-dir", tmp, "--device", "cuda"], counters, what, keys)
+        if keep:
+            KEPT[keep] = (log_dir, trained.replayed())
         for f in RUN_FILES:
             if not os.path.isfile(os.path.join(log_dir, f.replace("ppo2", algo))):
                 raise AssertionError(f"{what}: run dir lacks {f}")
@@ -515,29 +556,33 @@ def srl_workflow(torch, train, counters) -> dict:
     from srl_tpu_torch.srl import episode_saver
 
     out = {}
-    with tempfile.TemporaryDirectory() as root:
-        logs = {env: os.path.join(root, "srl_logs", env)
-                for env in ("MobileRobotGymEnv-v0", "KukaButtonGymEnv-v0")}
-        config = os.path.join(root, "srl_models.yaml")
-        with open(config, "w") as fh:
-            for env, folder in logs.items():
-                fh.write(f"{env}:\n  log_folder: {folder}/\n"
-                         f"  autoencoder: autoencoder/srl_model.pkl\n")
-        for env, data_args, epochs, run_args, n_envs, kernel in (
-                ("MobileRobotGymEnv-v0", SRL_MOBILE_DATA, 2, SRL_MOBILE_ARGS, 256, "render2d"),
-                ("KukaButtonGymEnv-v0", SRL_KUKA_DATA, 1, SRL_KUKA_ARGS, 512, "render3d")):
-            folder, rec_launches = record(torch, dataset_generator, episode_saver, data_args,
-                                          counters, env, root)
-            if rec_launches[kernel] <= 0:
-                raise AssertionError(f"recording {env} never launched the {kernel} kernel")
-            train_encoder(torch, train_srl, folder, epochs, counters, env,
-                          os.path.join(logs[env], "autoencoder"))
-            seconds, launches, entries = drive(
-                torch, train, run_args + ["--srl-config-file", config], counters,
-                f"{env} autoencoder (SRLEncodedEnv) {n_envs} envs", obs_shape=(3,))
-            if launches[kernel] <= 0:
-                raise AssertionError(f"serving on {env} never launched the {kernel} kernel")
-            out[env] = {"record": rec_launches, "serve": launches}
+    root = os.path.join(KEPT["root"], "srl")  # kept: step 11 replays the MobileRobot run
+    os.makedirs(root)
+    logs = {env: os.path.join(root, "srl_logs", env)
+            for env in ("MobileRobotGymEnv-v0", "KukaButtonGymEnv-v0")}
+    config = os.path.join(root, "srl_models.yaml")
+    with open(config, "w") as fh:
+        for env, folder in logs.items():
+            fh.write(f"{env}:\n  log_folder: {folder}/\n"
+                     f"  autoencoder: autoencoder/srl_model.pkl\n")
+    for env, data_args, epochs, run_args, n_envs, kernel in (
+            ("MobileRobotGymEnv-v0", SRL_MOBILE_DATA, 2, SRL_MOBILE_ARGS, 256, "render2d"),
+            ("KukaButtonGymEnv-v0", SRL_KUKA_DATA, 1, SRL_KUKA_ARGS, 512, "render3d")):
+        folder, rec_launches = record(torch, dataset_generator, episode_saver, data_args,
+                                      counters, env, root)
+        if env == "MobileRobotGymEnv-v0":
+            KEPT["mobile dataset"] = folder
+        if rec_launches[kernel] <= 0:
+            raise AssertionError(f"recording {env} never launched the {kernel} kernel")
+        train_encoder(torch, train_srl, folder, epochs, counters, env,
+                      os.path.join(logs[env], "autoencoder"))
+        seconds, launches, entries = drive(
+            torch, train, run_args + ["--srl-config-file", config], counters,
+            f"{env} autoencoder (SRLEncodedEnv) {n_envs} envs", obs_shape=(3,),
+            keep="mobile srl" if env == "MobileRobotGymEnv-v0" else None)
+        if launches[kernel] <= 0:
+            raise AssertionError(f"serving on {env} never launched the {kernel} kernel")
+        out[env] = {"record": rec_launches, "serve": launches}
     return out
 
 
@@ -548,7 +593,8 @@ def new_envs(torch, train, counters) -> dict:
     from srl_tpu_torch.envs import debug
 
     _, mixed, entries = drive(torch, train, MIXED_ARGS, counters,
-                              "mixed KukaButtonGymEnv-v0 + OmnirobotEnv-v0 raw_pixels 256 envs")
+                              "mixed KukaButtonGymEnv-v0 + OmnirobotEnv-v0 raw_pixels 256 envs",
+                              keep="mixed")
     if mixed["render3d"] <= 0:
         raise AssertionError("the mixed pixel path never launched the render3d kernel")
     log(f"[main] mixed run launches: render3d {mixed['render3d']}, render2d "
@@ -795,7 +841,7 @@ def recurrent_agents(torch, train, counters) -> dict:
     from srl_tpu_torch.agents.recurrent_ppo import RecurrentPPO2
 
     out = {}
-    with tempfile.TemporaryDirectory() as root:
+    with log_root("lstm") as root, Trained(RecurrentPPO2, best=True) as run:
         log_dir, seconds, launches, entries = run_cli(
             torch, train, LSTM_PPO_ARGS + ["--checkpoint-interval", "1", "--log-dir", root,
                                            "--device", "cuda"],
@@ -820,6 +866,7 @@ def recurrent_agents(torch, train, counters) -> dict:
             f"explained_variance {entries[0]['explained_variance']:.4g}")
         if name != "ppo2_lstm":
             raise AssertionError(f"8a: the policy pickle is named {name}")
+        KEPT["lstm"] = (log_dir, run.replayed())
 
     for step, args, keys, kernel in (
             ("8b a2c --policy cnnlnlstm", LSTM_A2C_ARGS, A2C_KEYS, "render3d"),
@@ -875,27 +922,49 @@ def dqn_expected(args, chunk: int = 64) -> tuple:
 class Trained:
     """The agent a CLI run trains with ``cls``: its ``learn`` is wrapped
     for the run to keep the agent (``self.agent``), so that a reloaded
-    policy can be held against the trained one."""
+    policy can be held against the trained one. With ``best``, its ``save``
+    is wrapped too, to keep a copy of the state (without a replay store)
+    at each save of the best model, ``{algo}_model.pkl``, which a replay
+    loads before the final model."""
 
-    def __init__(self, cls):
-        self.cls, self.agent = cls, None
+    def __init__(self, cls, best: bool = False):
+        self.cls, self.best, self.agent, self.best_state = cls, best, None, None
 
     def __enter__(self):
-        self.own = self.cls.__dict__.get("learn")
-        learn = self.cls.learn
+        self.own = {name: self.cls.__dict__.get(name) for name in ("learn", "save")}
+        learn, save = self.cls.learn, self.cls.save
 
         def keep(agent, *args, **kwargs):
             self.agent = agent
             return learn(agent, *args, **kwargs)
 
+        def keep_best(agent, path, *args, **kwargs):
+            if not path.endswith("_final_model.pkl"):
+                state = agent.state
+                if hasattr(state, "buffer"):
+                    state = dataclasses.replace(state, buffer=None)
+                self.best_state = copy.deepcopy(state)
+            return save(agent, path, *args, **kwargs)
+
         self.cls.learn = keep
+        if self.best:
+            self.cls.save = keep_best
         return self
 
     def __exit__(self, *exc):
-        if self.own is None:
-            del self.cls.learn
-        else:
-            self.cls.learn = self.own
+        for name, own in self.own.items():
+            if own is None:
+                if name in self.cls.__dict__:
+                    delattr(self.cls, name)
+            else:
+                setattr(self.cls, name, own)
+
+    def replayed(self):
+        """The trained agent as a replay loads it: at its last save of the
+        best model when it saved one, else as it ended."""
+        if self.best_state is not None:
+            self.agent.state = self.best_state
+        return self.agent
 
 
 def replay_agents(torch, train, counters) -> dict:
@@ -1021,7 +1090,8 @@ def last_agents(torch, train, counters) -> dict:
             ("10b ddpg (cnn) MobileRobotGymEnv-v0 raw_pixels 224x224 -c", DDPG_ARGS, DDPG,
              "render2d")):
         n_steps, updates_expected = off_policy_expected(args)
-        with tempfile.TemporaryDirectory() as root, Trained(cls) as trained:
+        with log_root("sac" if cls is SAC else None) as root, \
+                Trained(cls, best=cls is SAC) as trained:
             log_dir, seconds, launches, entries = run_cli(
                 torch, train, args + ["--log-dir", root, "--device", "cuda"], counters,
                 f"{step} 256 envs", OFF_POLICY_KEYS)
@@ -1050,6 +1120,9 @@ def last_agents(torch, train, counters) -> dict:
                 + ("; alpha by chunk " + ", ".join(f"{a:.6g}" for a in alphas)
                    if alphas else ""))
             out[step.split()[0]] = launches[kernel]
+            if cls is SAC:  # step 11 replays the run; the agent without its store
+                agent.state = dataclasses.replace(agent.state, buffer=None)
+                KEPT["sac"] = (log_dir, trained.replayed())
             trained.agent = agent = saved = buffer = None  # the store's GB
         torch.cuda.empty_cache()
 
@@ -1101,6 +1174,237 @@ def last_agents(torch, train, counters) -> dict:
     return out
 
 
+# Step 11's replays: 256 envs for 64 vector steps (16,384 env steps) each,
+# with --plot, and --render where a kernel draws the strip.
+ENJOY_ENVS, ENJOY_STEPS = 256, 64
+# (name, kept run, kernel, --render, dones of acts_alike's two steps, atol)
+REPLAYS = [
+    ("11a Kuka pixel PPO2 (step 4)", "kuka", "render3d", True, (None, None), 0.0),
+    ("11b MobileRobot 224x224 pixel PPO2 (step 4)", "mobile", "render2d", True, (None, None),
+     0.0),
+    ("11c PPO2 cnnlstm on Kuka (8a)", "lstm", "render3d", False,
+     (None, np.array([True] + [False] * 7)), 0.0),
+    ("11d SAC on continuous Kuka (10a)", "sac", "render3d", False, (None, None), 1e-6),
+    ("11e mixed Kuka + Omnirobot (step 6)", "mixed", "render3d", True, (None, None), 0.0),
+    ("11f MobileRobot SRL serving (step 5)", "mobile srl", "render2d", True, (None, None),
+     0.0),
+]
+
+
+def enjoy_expected(enjoy, render: bool) -> int:
+    """Launches of the kernel that draws a replay's env: the reset, each of
+    ENJOY_STEPS steps, and with --render a frame every FRAME_EVERY steps
+    (at most MAX_FRAMES)."""
+    frames = min(enjoy.MAX_FRAMES, -(-ENJOY_STEPS // enjoy.FRAME_EVERY)) if render else 0
+    return 1 + ENJOY_STEPS + frames
+
+
+def hold_frames(torch, result, env, render2d, render3d, what) -> float:
+    """Each frame of a replay's strip against the plain twin's render of
+    the state it came from: render3d within its agreement metric, render2d
+    bit for bit; returns the largest |diff|."""
+    src = env.families[0] if hasattr(env, "families") else env
+    src = getattr(src, "_env", src)  # the pixels inside SRLEncodedEnv
+    worst = 0
+    for frame, state in zip(result["frames"], result["frame_states"]):
+        if hasattr(src, "dim"):  # MobileRobot
+            xs, ys, bg = render2d.static_tensors(src.dim, *src.render_shape, "cuda")
+            plain = render2d.render_mobile_robot_plain(render2d.scene_params(src, state),
+                                                       xs, ys, bg)
+        else:
+            cfg, scene = render3d._scene_table(src, state)
+            cam = render3d.camera_tensors(cfg, "cuda")
+            plain = render3d.render_kuka_plain(cfg, scene, cam.eyes, cam.rays, cam.bg)
+        diff = (torch.as_tensor(frame, device="cuda").to(torch.int32)
+                - plain[0, ..., :3].to(torch.int32)).abs()
+        worst = max(worst, int(diff.max()))
+        exact = hasattr(src, "dim")
+        if exact and worst or not exact and not (
+                (diff == 0).double().mean() > 0.995 and (diff > 2).double().mean() < 0.005):
+            raise AssertionError(f"{what}: a frame of the strip disagrees with the twin "
+                                 f"(max |diff| {int(diff.max())})")
+    return worst
+
+
+def replays(torch, counters, render2d, render3d) -> dict:
+    """Step 11a-f: each kept run replayed through ``replay.enjoy``'s CLI at
+    its width, the launch counts set to 0 just before and read just after."""
+    from srl_tpu_torch.replay import enjoy
+
+    out = {}
+    for what, name, kernel, render, dones_seq, atol in REPLAYS:
+        log_dir, trained = KEPT[name]
+        for module in counters.values():
+            module.launches = 0
+        t0 = time.perf_counter()
+        result = enjoy.main(["--log-dir", log_dir, "--num-envs", str(ENJOY_ENVS),
+                             "--num-timesteps", str(ENJOY_ENVS * ENJOY_STEPS), "--plot",
+                             "--device", "cuda"] + (["--render"] if render else []))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: m.launches for k, m in counters.items()}
+        expected = {k: enjoy_expected(enjoy, render) if k == kernel else 0 for k in counters}
+        if launches != expected:
+            raise AssertionError(f"{what}: launches {launches}, not {expected}")
+        returns = result["episode_returns"]
+        mean = result["mean_return"]
+        if not all(map(math.isfinite, returns)) or not (mean is None or math.isfinite(mean)):
+            raise AssertionError(f"{what}: returns {returns[:8]}, mean {mean}")
+        _, env, loaded = enjoy.load_config_and_setup(log_dir, "cuda")
+        if hasattr(trained, "_act_carry"):  # start from a zero LSTM context, as `loaded`
+            trained._act_carry = trained._act_ctx = None
+        acts = acts_alike(torch, loaded, trained, env, what, dones_seq, atol)
+        detail = []
+        if name == "lstm":
+            if type(loaded).__name__ != "RecurrentPPO2" or "mean_proba" not in result:
+                raise AssertionError(f"{what}: {type(loaded).__name__}, {sorted(result)}")
+            detail.append(f"reloads as {type(loaded).__name__}, mean action probabilities "
+                          f"{np.round(result['mean_proba'], 4).tolist()}")
+        if name.endswith("srl") and tuple(env.observation_space.shape) != (3,):
+            raise AssertionError(f"{what}: observations {env.observation_space.shape}")
+        if "mixed" in name and not hasattr(env, "families"):
+            raise AssertionError(f"{what}: the mixed pod was not rebuilt")
+        if render:
+            worst = hold_frames(torch, result, env, render2d, render3d, what)
+            detail.append(f"{len(result['frames'])} frames {result['frames'][0].shape} agree "
+                          f"with the twin (max |diff| {worst})")
+        traj = result["trajectory"]
+        if traj.shape != (ENJOY_STEPS, 2) or not np.isfinite(traj).all():
+            raise AssertionError(f"{what}: trajectory {traj.shape}")
+        rate = result["env_steps"] / result["rollout_seconds"]
+        log(f"[replay] {what}: {result['env_steps']} env steps in "
+            f"{result['rollout_seconds']:.2f} s: {rate:.0f} env-steps/s ({seconds:.2f} s with "
+            f"set-up); {len(returns)} episodes, mean return {mean}; launches {launches}; "
+            f"acts as the trained agent on two steps of 8 envs (first "
+            f"{np.round(np.asarray(acts[0])[:2], 4).tolist()}); "
+            + "; ".join(detail) + f"; figures {result.get('plot_path')}, "
+            f"{result.get('frames_path')}")
+        out[what.split()[0]] = launches[kernel]
+    return out
+
+
+def get_json(port: int, path: str):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise AssertionError(f"GET {path}: HTTP {resp.status}")
+        return json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def host_tools(torch, has_matplotlib: bool) -> None:
+    """Step 11's tools over the smoke's own log root: a pipeline grid, a
+    Hyperband search, the plots, the live curves, the dataset tools and a
+    frame store round trip."""
+    from srl_tpu_torch.data import change_to_relative_pos, dataset_fusioner, dataset_generator
+    from srl_tpu_torch.experiments import hyperparam_search, live_vis, pipeline
+    from srl_tpu_torch.native import FrameStoreReader, FrameStoreWriter
+    from srl_tpu_torch.replay import aggregate_plots, compare_plots, gather_results, plots
+    from srl_tpu_torch.srl.episode_saver import load_dataset
+    from srl_tpu_torch.utils.monitor import load_results
+
+    logs = os.path.join(KEPT["root"], "logs")
+    env_logs = os.path.join(logs, "MobileRobotGymEnv-v0")
+    t0 = time.perf_counter()
+    runs = pipeline.main(["--env", "MobileRobotGymEnv-v0", "--srl-model", "ground_truth",
+                          "--num-iteration", "2", "--seed", "5", "--num-timesteps", "960000",
+                          "--log-dir", logs, "--srl-config-file",
+                          os.path.join(REPO, "config", "srl_models.yaml"), "--device", "cuda",
+                          "--num-envs", "4096"])
+    episodes = [len(load_results(r)[0]["r"]) for r in runs]
+    if len(runs) != 2 or min(episodes) < 4096:
+        raise AssertionError(f"pipeline: runs {runs}, episodes {episodes}")
+    log(f"[tools] pipeline: 2 seeds of the quickstart (4096 envs) in "
+        f"{time.perf_counter() - t0:.1f} s, {episodes} episodes")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_path = os.path.join(tmp, "hyperband.csv")
+        best, params = hyperparam_search.main([
+            "--algo", "ppo2", "--env", "MobileRobotGymEnv-v0", "--srl-model", "ground_truth",
+            "--optimizer", "hyperband", "--max-eval", "3", "--num-timesteps", "8000",
+            "--log-dir", tmp, "--output", csv_path, "--device", "cuda"])
+        with open(csv_path) as fh:
+            rows = fh.read().splitlines()
+    if not math.isfinite(best) or len(rows) != 7:
+        raise AssertionError(f"hyperband: best {best}, {len(rows) - 1} trials")
+    log(f"[tools] hyperband --max-eval 3 on MobileRobot ground truth (16 envs): 3 "
+        f"configurations, {len(rows) - 1} training runs in {time.perf_counter() - t0:.1f} s; "
+        f"best score {best:.4g} with n_steps {params['n_steps']}")
+
+    t0 = time.perf_counter()
+    curves = os.path.join(KEPT["root"], "curves")
+    png = plots.main(["--log-dir", runs[0]])
+    aggregate_plots.main(["--log-dir", env_logs, "--output", curves])
+    npz = sorted(f for f in os.listdir(curves) if f.endswith(".npz"))
+    if npz != ["autoencoder.npz", "ground_truth.npz", "raw_pixels.npz"]:
+        raise AssertionError(f"aggregate_plots: {npz}")
+    compare = compare_plots.main(["-i", curves, "--title", "chip smoke"])
+    results_csv, tests = gather_results.main(["--log-dir", env_logs, "--timesteps", "100000",
+                                              "1000000"])
+    with open(results_csv) as fh:
+        table = fh.read().splitlines()
+    if len(table) != 4:
+        raise AssertionError(f"gather_results: {table}")
+    drawn = [png, compare, os.path.join(curves, "aggregated_curves.png")]
+    if has_matplotlib != all(p and os.path.isfile(p) for p in drawn):
+        raise AssertionError(f"figures {drawn} with matplotlib {has_matplotlib}")
+    server = live_vis.LiveVisServer(runs[0], port=0)
+    if not server.start():
+        raise AssertionError("live_vis: no free port")
+    try:
+        data = get_json(server.port, "/data.json")
+    finally:
+        server.stop()
+    if data != json.loads(json.dumps(live_vis.read_run_data(runs[0]))):
+        raise AssertionError("live_vis: data.json differs from read_run_data")
+    log(f"[tools] plots, aggregate_plots ({', '.join(npz)}), compare_plots, gather_results "
+        f"({table[0]}; {len(tests)} t-tests) and the live server's data.json "
+        f"({len(data['episodes'])} episodes) in {time.perf_counter() - t0:.1f} s"
+        + ("" if has_matplotlib else "; matplotlib is missing: no figure drawn"))
+
+    t0 = time.perf_counter()
+    first = KEPT["mobile dataset"]
+    root = os.path.dirname(first)
+    second = dataset_generator.main(["--env", "MobileRobotGymEnv-v0", "--num-envs", "32",
+                                     "--max-steps", "15", "--num-episode", "32", "--name",
+                                     "mobile2", "--save-path", root, "--device", "cuda"])
+    merged = dataset_fusioner.main(["--merge", first, second, os.path.join(root, "merged"),
+                                    "--keep-sources"])
+    change_to_relative_pos.main(["--data-folder", merged])
+    d1, d2, dm = load_dataset(first), load_dataset(second), load_dataset(merged)
+    n1 = len(d1["rewards"])
+    idx = np.cumsum(dm["episode_starts"]) - 1
+    relative = np.concatenate([d1["ground_truth_states"], d2["ground_truth_states"]]) \
+        - dm["target_positions"][idx]
+    if not (np.array_equal(dm["observations"][:n1], d1["observations"])
+            and np.array_equal(dm["observations"][n1:], d2["observations"])
+            and np.array_equal(dm["ground_truth_states"], relative)
+            and dm["episode_starts"].sum() == 64):
+        raise AssertionError("dataset_fusioner / change_to_relative_pos: merged data differ")
+    log(f"[tools] dataset_fusioner of {n1} + {len(d2['rewards'])} MobileRobot frames "
+        f"(224x224x3), then change_to_relative_pos, in {time.perf_counter() - t0:.1f} s")
+
+    frames = d1["observations"]
+    path = os.path.join(root, "store.srlf")
+    t0 = time.perf_counter()
+    writer = FrameStoreWriter(path, frames.shape[1:])
+    for i in range(0, len(frames), 256):
+        writer.push(frames[i:i + 256])
+    t_push = time.perf_counter() - t0
+    n = writer.close()
+    t_close = time.perf_counter() - t0
+    with FrameStoreReader(path) as reader:
+        same = np.array_equal(reader.frames, frames)
+    if n != len(frames) or not same or frames.shape != (2048, 224, 224, 3):
+        raise AssertionError(f"framestore: {n} frames of {frames.shape}, equal {same}")
+    log(f"[tools] framestore: {frames.shape} uint8 ({frames.nbytes / 1e6:.0f} MB) pushed in "
+        f"{t_push:.3f} s, on disk at close after {t_close:.3f} s, read back equal")
+
+
 def main() -> int:
     import torch
 
@@ -1116,6 +1420,8 @@ def main() -> int:
     from srl_tpu_torch.ops import cuda_build, render2d, render3d
 
     dev = torch.device("cuda")
+    kept = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    KEPT["root"] = kept.name
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
@@ -1183,11 +1489,13 @@ def main() -> int:
     # 4. The main paths, each with the counts set to 0 just before it.
     counters = {"render3d": render3d, "render2d": render2d}
     kuka_seconds, kuka_launches, _ = drive(torch, train, KUKA_ARGS, counters,
-                                           "KukaButtonGymEnv-v0 raw_pixels 256 envs")
+                                           "KukaButtonGymEnv-v0 raw_pixels 256 envs",
+                                           keep="kuka")
     if kuka_launches["render3d"] <= 0:
         raise AssertionError("the Kuka pixel path never launched the render3d kernel")
     _, mobile_launches, _ = drive(torch, train, MOBILE_ARGS, counters,
-                                  "MobileRobotGymEnv-v0 raw_pixels 224x224 256 envs")
+                                  "MobileRobotGymEnv-v0 raw_pixels 224x224 256 envs",
+                                  keep="mobile")
     if mobile_launches["render2d"] <= 0:
         raise AssertionError("the MobileRobot pixel path never launched the render2d kernel")
     _, _, entries = drive(torch, train, QUICKSTART_ARGS, counters,
@@ -1226,6 +1534,24 @@ def main() -> int:
     last_launches = last_agents(torch, train, counters)
     log(f"[last] launches: {json.dumps(last_launches)}; step 10 took "
         f"{time.perf_counter() - t_step10:.1f} s")
+    t_step11 = time.perf_counter()
+
+    # 11. Replays of the kept runs, and the host-side tools.
+    found = {}
+    for module in ("matplotlib", "zmq"):
+        try:
+            found[module] = __import__(module).__version__
+        except ImportError:
+            found[module] = None
+    log(f"[replay] matplotlib {found['matplotlib'] or 'is not installed'}; pyzmq "
+        f"{found['zmq'] or 'is not installed'}"
+        + ("" if found["matplotlib"] else ": the figures are left out, every replay and "
+           "kernel still runs"))
+    enjoy_launches = replays(torch, counters, render2d, render3d)
+    host_tools(torch, found["matplotlib"] is not None)
+    log(f"[replay] launches: {json.dumps(enjoy_launches)}; step 11 took "
+        f"{time.perf_counter() - t_step11:.1f} s")
+    kept.cleanup()
     log(f"[done] {time.perf_counter() - t_start:.1f} s after start-up")
 
     print(json.dumps({"kernels": [{
@@ -1240,6 +1566,7 @@ def main() -> int:
         "sac_launches": last_launches["10a"],
         "ars_launches": last_launches["10c"],
         "random_agent_launches": last_launches["10e"],
+        "enjoy_launches": enjoy_launches["11a"],
         "max_abs_err": max(r3_err, mb["max_abs_err"]),
         "ms": r3_ms,
         "plain_ms": r3_plain_ms,
@@ -1256,6 +1583,7 @@ def main() -> int:
         "dqn_launches": replay_launches["9c"],
         "ddpg_launches": last_launches["10b"],
         "cmaes_launches": last_launches["10d"],
+        "enjoy_launches": enjoy_launches["11b"],
         "max_abs_err": r2_err,
         "ms": r2_ms,
         "plain_ms": r2_plain_ms,

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from srl_tpu_torch import bridge
-from srl_tpu_torch.agents.base import BaseRLAgent
+from srl_tpu_torch.agents.base import BaseRLAgent, as_tensor_on
 from srl_tpu_torch.agents.common import population_actions, population_returns
 from srl_tpu_torch.core.device import resolve_device
 from srl_tpu_torch.core.env import VecEnv
@@ -174,7 +174,7 @@ class ARS(BaseRLAgent):
         }
 
     def _logits(self, observation, normalize: bool) -> torch.Tensor:
-        obs = torch.as_tensor(np.asarray(observation), device=self.device)
+        obs = as_tensor_on(observation, self.device)
         obs = obs.reshape(len(obs), -1).to(torch.float32)
         if normalize and self.obs_norm is not None:
             obs = self.obs_norm.normalize(obs)

@@ -28,6 +28,14 @@ from srl_tpu_torch.core.spaces import Discrete
 from srl_tpu_torch.models.policies import ActorCritic, make_policy
 
 
+def as_tensor_on(x, device) -> torch.Tensor:
+    """``x`` (a tensor on any device, or anything numpy reads) as a tensor
+    on ``device``: observations that are on the card stay there."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.as_tensor(np.asarray(x), device=device)
+
+
 @dataclasses.dataclass
 class PPOState:
     """The training state of the actor-critic agents (PPO2, PPO1, A2C,
@@ -181,7 +189,7 @@ class BaseRLAgent:
 
     # ---- acting ---------------------------------------------------------
     def _act_dist(self, observation):
-        obs = torch.as_tensor(np.asarray(observation), device=self.device)
+        obs = as_tensor_on(observation, self.device)
         if self.state.obs_norm is not None:
             obs = self.state.obs_norm.normalize(obs)
         dist, _ = self.apply(self.state.params, obs)
@@ -373,7 +381,7 @@ class RecurrentActing:
     _act_ctx = None
 
     def _act_step(self, observation, carry, done):
-        obs = torch.as_tensor(np.asarray(observation), device=self.device)
+        obs = as_tensor_on(observation, self.device)
         if self.state.obs_norm is not None:
             obs = self.state.obs_norm.normalize(obs)
         return self._policy_step(self.state.params, obs, carry, done)
@@ -389,7 +397,7 @@ class RecurrentActing:
         if self._act_carry is None or self._act_carry[0].shape[0] != n:
             self._act_carry = self._zero_context(n)[0]
         done = (torch.zeros(n, dtype=torch.bool, device=self.device) if dones is None
-                else torch.as_tensor(np.asarray(dones), device=self.device).to(torch.bool))
+                else as_tensor_on(dones, self.device).to(torch.bool))
         self._act_ctx = (self._act_carry, done)
         dist, _, self._act_carry = self._act_step(observation, self._act_carry, done)
         if deterministic:

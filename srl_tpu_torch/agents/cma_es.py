@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from srl_tpu_torch import bridge
-from srl_tpu_torch.agents.base import BaseRLAgent
+from srl_tpu_torch.agents.base import BaseRLAgent, as_tensor_on
 from srl_tpu_torch.agents.common import population_actions, population_returns
 from srl_tpu_torch.core.device import resolve_device
 from srl_tpu_torch.core.env import VecEnv
@@ -277,7 +277,7 @@ class CMAES(BaseRLAgent):
         return {"sigma": (float, (0, 0.2))}
 
     def _best_logits(self, observation) -> torch.Tensor:
-        obs = torch.as_tensor(np.asarray(observation), device=self.device)
+        obs = as_tensor_on(observation, self.device)
         flat = torch.as_tensor(np.asarray(self.best_model, np.float32), device=self.device)
         return self.logits(flat[None], obs[:, None])[:, 0]
 

@@ -33,7 +33,7 @@ import torch.nn as nn
 from torch.func import functional_call
 
 from srl_tpu_torch import bridge
-from srl_tpu_torch.agents.base import BaseRLAgent
+from srl_tpu_torch.agents.base import BaseRLAgent, as_tensor_on
 from srl_tpu_torch.agents.buffers import ReplayBuffer
 from srl_tpu_torch.agents.ppo import ADAM_STATE
 from srl_tpu_torch.bridge import Record
@@ -278,7 +278,7 @@ class OffPolicyAgent(BaseRLAgent):
                                        norm, payload)
 
     def _normalized_input(self, observation) -> torch.Tensor:
-        obs = torch.as_tensor(np.asarray(observation), device=self.device)
+        obs = as_tensor_on(observation, self.device)
         if self.state.obs_norm is not None:
             obs = self.state.obs_norm.normalize(obs)
         return obs

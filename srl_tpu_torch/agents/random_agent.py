@@ -75,7 +75,7 @@ class RandomAgent(BaseRLAgent):
                   gen: Optional[torch.Generator] = None):
         """Uniform actions from an unseeded ``np.random.RandomState()``, as
         the reference's (``gen`` is there for the common call forms)."""
-        n = np.asarray(observation).shape[0]
+        n = len(observation)
         n_act = getattr(self.env.action_space, "n", None)
         rng = np.random.RandomState()
         if n_act is not None:
@@ -83,7 +83,7 @@ class RandomAgent(BaseRLAgent):
         return rng.uniform(-1, 1, size=(n,) + tuple(self.env.action_space.shape))
 
     def getActionProba(self, observation, dones=None):
-        n = np.asarray(observation).shape[0]
+        n = len(observation)
         n_act = getattr(self.env.action_space, "n", None)
         if n_act is not None:
             return np.full((n, n_act), 1.0 / n_act)

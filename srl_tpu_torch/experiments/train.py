@@ -47,7 +47,10 @@ Flags reach the config only where they name a field: DQN's
 (ROADMAP Queue C). A checkpoint of ACER, DQN, SAC or DDPG holds its replay
 store too: about 10 GB for ACER and 3.8 GB for SAC at the Kuka pixel run's
 width (256 envs, 112x112 frames), 15 GB for DDPG at MobileRobot 224x224's.
-``--port`` and ``--no-vis`` are accepted and draw nothing.
+Unless ``--no-vis``, the run's live curves are served on ``--port``
+(``experiments/live_vis``; a busy port is skipped) and its
+``learning_curve.png`` is drawn at most every 2 s from the callback and once
+at the end (``experiments/visualize``).
 
 Usage (the README's pixel run, the quickstart, an encoder trained by
 ``srl_tpu_torch.experiments.train_srl``, a resume):
@@ -85,6 +88,8 @@ from srl_tpu_torch.core.frame_stack import FrameStack
 from srl_tpu_torch.core.mixed_env import MixedEnv
 from srl_tpu_torch.core.spaces import Discrete
 from srl_tpu_torch.envs.registry import make_env, registered_env
+from srl_tpu_torch.experiments.live_vis import LiveVisServer
+from srl_tpu_torch.experiments.visualize import plot_log_dir
 from srl_tpu_torch.srl import SRLType
 from srl_tpu_torch.srl.registry import registered_srl
 from srl_tpu_torch.utils.logging import printGreen, printYellow
@@ -113,7 +118,7 @@ def build_parser(argv=None) -> argparse.ArgumentParser:
                         type=int, default=40,
                         help="episodes in the mean reward of metrics.jsonl")
     parser.add_argument("--port", type=int, default=8097,
-                        help="accepted for compatibility: the port draws no plots")
+                        help="port of the live curves' server (0: any free port)")
     parser.add_argument("--log-dir", default="logs/")
     parser.add_argument("--num-timesteps", type=int, default=int(1e6))
     parser.add_argument("--srl-model", default="raw_pixels",
@@ -163,7 +168,7 @@ def build_parser(argv=None) -> argparse.ArgumentParser:
     parser.add_argument("-joints", "--action-joints", action="store_true")
     parser.add_argument("-r", "--random-target", action="store_true")
     parser.add_argument("--no-vis", action="store_true",
-                        help="accepted for compatibility: the port draws no plots")
+                        help="no live curves' server and no learning_curve.png")
     parser.add_argument("--mixed-envs", nargs="+", default=None, metavar="ENV_ID",
                         choices=list(registered_env.keys()),
                         help="train one learner on a batch of these env families, "
@@ -294,8 +299,10 @@ def make_callback(log_dir: str, args, monitor: MonitorWriter, algo,
     """Monitor CSV rows, best-model saving every ``SAVE_INTERVAL`` updates,
     a checkpoint every ``--checkpoint-interval`` updates and a metrics.jsonl
     line per call, the losses included; a resumed run counts on from its
-    checkpoint's steps and episodes."""
-    state = {"best": -1e4, "n_logged": 0, "base_timesteps": 0, "base_episodes": 0}
+    checkpoint's steps and episodes. Unless ``--no-vis``, each printed line
+    redraws ``learning_curve.png`` if the last drawing is over 2 s old."""
+    state = {"best": -1e4, "n_logged": 0, "base_timesteps": 0, "base_episodes": 0,
+             "last_plot": 0.0}
     if resume_meta:
         state["best"] = resume_meta.get("best", state["best"])
         state["base_timesteps"] = resume_meta.get("num_timesteps", 0)
@@ -346,8 +353,16 @@ def make_callback(log_dir: str, args, monitor: MonitorWriter, algo,
                        f"steps {entry['num_timesteps']}  episodes {entry['n_episodes']}  "
                        f"mean reward {mean if mean is not None else float('nan'):.2f}  "
                        f"{entry['fps']:.0f} steps/s")
+            if not args.no_vis and ep_returns and time.time() - state["last_plot"] > 2.0:
+                state["last_plot"] = time.time()
+                monitor.flush()
+                plot_log_dir(log_dir, title=plot_title(args), episode_window=args.episode_window)
 
     return callback
+
+
+def plot_title(args) -> str:
+    return f"{args.env} ({args.srl_model}, {args.algo})"
 
 
 def algo_kwargs(algo_class, args, parser, hyperparams: dict, device) -> dict:
@@ -436,20 +451,34 @@ def main(argv=None) -> str:
 
     monitor = MonitorWriter(log_dir, env_id=args.env, append=args.resume is not None)
     callback = make_callback(log_dir, args, monitor, agent, resume_meta)
+    live_server = None
+    if not args.no_vis:
+        live_server = LiveVisServer(log_dir, port=args.port, window=args.episode_window)
+        if live_server.start():
+            printGreen(f"Live curves: http://localhost:{live_server.port}")
+        else:
+            printYellow(f"Port {args.port} is busy: no live curves for this run")
+            live_server = None
     t0 = time.time()
-    if args.profile:
-        activities = [torch.profiler.ProfilerActivity.CPU]
-        if device.type == "cuda":
-            activities.append(torch.profiler.ProfilerActivity.CUDA)
-        with torch.profiler.profile(activities=activities) as prof:
+    try:
+        if args.profile:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            with torch.profiler.profile(activities=activities) as prof:
+                agent.learn(total, seed=args.seed, callback=callback, **learn_kwargs)
+            os.makedirs(os.path.join(log_dir, "profile"), exist_ok=True)
+            prof.export_chrome_trace(os.path.join(log_dir, "profile", "trace.json"))
+        else:
             agent.learn(total, seed=args.seed, callback=callback, **learn_kwargs)
-        os.makedirs(os.path.join(log_dir, "profile"), exist_ok=True)
-        prof.export_chrome_trace(os.path.join(log_dir, "profile", "trace.json"))
-    else:
-        agent.learn(total, seed=args.seed, callback=callback, **learn_kwargs)
+    finally:
+        if live_server is not None:
+            live_server.stop()
     printGreen(f"Training done in {time.time() - t0:.1f}s")
     agent.save(os.path.join(log_dir, f"{args.algo}_final_model.pkl"))
     monitor.close()
+    if not args.no_vis:
+        plot_log_dir(log_dir, title=plot_title(args))
     return log_dir
 
 

@@ -114,24 +114,32 @@ class EpisodeSaver:
         return self.data_folder
 
 
+def srlf_header(dtype, frame_shape, nframes: int) -> bytes:
+    """The 64-byte header of a ``.srlf`` store of ``nframes`` frames of
+    ``frame_shape`` (1 to 5 dims) and ``dtype`` (uint8, float32, int32)."""
+    code = {v: k for k, v in SRLF_DTYPES.items()}[np.dtype(dtype)]
+    if not 1 <= len(frame_shape) <= 5:
+        raise ValueError(f"a frame store holds 1 to 5 frame dims, got {tuple(frame_shape)}")
+    header = np.zeros((), SRLF_HEADER)
+    header["magic"], header["version"], header["dtype"] = SRLF_MAGIC, SRLF_VERSION, code
+    header["ndim"] = len(frame_shape)
+    header["dims"][: len(frame_shape)] = frame_shape
+    header["nframes"] = nframes
+    return header.tobytes()
+
+
 def write_srlf(path: str, frames: np.ndarray) -> None:
     """Frames [N, ...] (1 to 5 frame dims, uint8/float32/int32) -> a
     ``.srlf`` frame store."""
-    code = {v: k for k, v in SRLF_DTYPES.items()}[frames.dtype]
-    if not 1 <= frames.ndim - 1 <= 5:
-        raise ValueError(f"a frame store holds 1 to 5 frame dims, got {frames.shape}")
-    header = np.zeros((), SRLF_HEADER)
-    header["magic"], header["version"], header["dtype"] = SRLF_MAGIC, SRLF_VERSION, code
-    header["ndim"] = frames.ndim - 1
-    header["dims"][: frames.ndim - 1] = frames.shape[1:]
-    header["nframes"] = frames.shape[0]
+    header = srlf_header(frames.dtype, frames.shape[1:], frames.shape[0])
     with open(path, "wb") as f:
-        f.write(header.tobytes())
-        f.write(np.ascontiguousarray(frames, SRLF_DTYPES[code]).tobytes())
+        f.write(header)
+        f.write(np.ascontiguousarray(frames).tobytes())
 
 
-def read_srlf(path: str) -> np.ndarray:
-    """A ``.srlf`` frame store -> frames [nframes, *dims] (a copy)."""
+def open_srlf(path: str) -> np.ndarray:
+    """A ``.srlf`` frame store -> a read-only memory map of its frames
+    [nframes, *dims] (an empty array for a store of no frame)."""
     header = np.fromfile(path, SRLF_HEADER, count=1)
     if len(header) != 1 or int(header["magic"][0]) != SRLF_MAGIC:
         raise ValueError(f"{path} is not a frame store")
@@ -140,7 +148,12 @@ def read_srlf(path: str) -> np.ndarray:
     dtype = SRLF_DTYPES[int(h["dtype"])]
     if shape[0] == 0:
         return np.zeros(shape, dtype)
-    return np.array(np.memmap(path, dtype, "r", offset=SRLF_HEADER.itemsize, shape=shape))
+    return np.memmap(path, dtype, "r", offset=SRLF_HEADER.itemsize, shape=shape)
+
+
+def read_srlf(path: str) -> np.ndarray:
+    """A ``.srlf`` frame store -> frames [nframes, *dims] (a copy)."""
+    return np.array(open_srlf(path))
 
 
 def save_frames(data_folder: str, frames: np.ndarray) -> None:

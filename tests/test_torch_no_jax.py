@@ -13,7 +13,8 @@ from srl_tpu_torch.agents.ppo import PPO2
 from srl_tpu_torch.data import dataset_generator
 from srl_tpu_torch.envs import debug
 from srl_tpu_torch.envs.kuka import KukaButtonEnv
-from srl_tpu_torch.experiments import train, train_srl
+from srl_tpu_torch.experiments import hyperparam_search, pipeline, train, train_srl
+from srl_tpu_torch.replay import enjoy
 from srl_tpu_torch.srl.trainer import SRLTrainer, fit_pca
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -62,3 +63,14 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch, tmp_path):
     assert not any(tmp_path.iterdir())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_srl.main(["--data-folder", str(tmp_path), "--srl-model", "pca"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        enjoy.main(["--log-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        enjoy.enjoy(str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pipeline.main(["--env", "MobileRobotGymEnv-v0", "--srl-model", "ground_truth",
+                       "--num-iteration", "1", "--log-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        hyperparam_search.main(["--max-eval", "3", "--log-dir", str(tmp_path),
+                                "--output", str(tmp_path / "results.csv")])
+    assert not any(tmp_path.iterdir())
