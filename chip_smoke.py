@@ -120,7 +120,27 @@ Phases, each reported on its own lines; any failure exits non-zero:
    two recorded MobileRobot datasets and ``change_to_relative_pos``, and a
    frame store round trip of [2048, 224, 224, 3] uint8. Whether matplotlib
    and pyzmq import is printed; without matplotlib only the figures are
-   left out.
+   left out;
+12. the ZMQ layer over loopback, each server in a daemon thread on a free
+   port: 12a, the SRL training service (``srl_tpu_torch.srl.server.serve``
+   on the card) answers an ``SRLClient``'s HELLO, then its LEARN on the
+   MobileRobot dataset of step 5 (2,048 frames of 224x224x3; autoencoder,
+   state dim 3, 1 epoch) with READY and a checkpoint that exists; that
+   checkpoint, named by an ``srl_models.yaml``, is served to PPO2 through
+   SRLEncodedEnv by the training CLI (256 envs, 2 updates: render2d
+   exactly 1 + 2 x 128 = 257 launches, the counts set to 0 just before),
+   its observations [256, 3] and the frames it renders after step 128
+   (kept as they are served) bit-equal to the twin's; a LEARN on a folder
+   that does not exist answers ERROR, the server then still answers
+   HELLO, and EXIT stops it within 5 s. 12b, the
+   Omnirobot simulator server (``real_robots.sim_server``, its env on the
+   card) driven by ``real_robots.remote_env.OmniRobotRemoteEnv`` through
+   one episode of 224x224 raw pixels (reset and 251 steps: ``done`` turns
+   true at step 251, after ``Omnirobot.MAX_STEPS`` = 250); every frame,
+   reward and position that arrives over the socket equals, bit for bit,
+   the in-process ``OmniRobotEnv`` stepped on the card from the same
+   generator seed and actions; the loopback steps/s and the bytes per frame
+   are printed. Each phase prints its seconds.
 
 The line before the last is a JSON object with each kernel's numbers, the
 last ``{"ok": true, "device": {...}}``. Needs the card and the rest of the
@@ -136,9 +156,11 @@ import math
 import os
 import pickle
 import re
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -1405,6 +1427,202 @@ def host_tools(torch, has_matplotlib: bool) -> None:
         f"{t_push:.3f} s, on disk at close after {t_close:.3f} s, read back equal")
 
 
+SRL_SERVE_ARGS = ["--env", "MobileRobotGymEnv-v0", "--srl-model", "autoencoder",
+                  "--algo", "ppo2", "--num-envs", "256", "--num-timesteps",
+                  str(2 * 128 * 256), "--no-vis"]
+SERVICE_TIMEOUT = 60.0  # seconds a loopback exchange may take, training aside
+SERVED_CALL = 129  # the served run's render after step 128: its second rollout's start
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def within(seconds: float, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` in a daemon thread, so that a server that
+    stopped answering fails the phase instead of hanging the script."""
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn(*args, **kwargs)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            out["error"] = e
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    thread.join(seconds)
+    if thread.is_alive():
+        raise AssertionError(f"{getattr(fn, '__qualname__', fn)} did not return in {seconds} s")
+    if "error" in out:
+        raise out["error"]
+    return out.get("value")
+
+
+def serving(target, *args, **kwargs) -> threading.Thread:
+    thread = threading.Thread(target=target, args=args, kwargs=kwargs, daemon=True)
+    thread.start()
+    return thread
+
+
+def stopped(thread: threading.Thread, what: str) -> None:
+    thread.join(5)
+    if thread.is_alive():
+        raise AssertionError(f"{what}: the server did not stop within 5 s of EXIT")
+
+
+@contextlib.contextmanager
+def served_batch(call: int):
+    """Keeps the ``call``-th batch that a run renders and encodes through
+    SRLEncodedEnv on MobileRobot: the env, a copy of the state, the frames
+    and the observations. Nothing is launched that the run would not launch."""
+    from srl_tpu_torch.envs.mobile_robot import MobileRobotEnv
+    from srl_tpu_torch.srl.models import SRLEncodedEnv
+
+    render, observe = MobileRobotEnv.render_pixels, SRLEncodedEnv.observe
+    kept, calls = {}, {"render": 0, "observe": 0}
+
+    def render_pixels(self, state):
+        frames = render(self, state)
+        calls["render"] += 1
+        if calls["render"] == call:
+            kept.update(env=self, frames=frames.clone(), state=dataclasses.replace(
+                state, **{f.name: getattr(state, f.name).clone()
+                          for f in dataclasses.fields(state)}))
+        return frames
+
+    def encode(self, state):
+        obs = observe(self, state)
+        calls["observe"] += 1
+        if calls["observe"] == call:
+            kept["obs"] = obs.clone()
+        return obs
+
+    MobileRobotEnv.render_pixels, SRLEncodedEnv.observe = render_pixels, encode
+    try:
+        yield kept
+    finally:
+        MobileRobotEnv.render_pixels, SRLEncodedEnv.observe = render, observe
+    kept["calls"] = calls
+
+
+def srl_service(torch, train, counters, render2d) -> int:
+    """Step 12a: train an encoder through the SRL service and serve it;
+    returns render2d's launches while serving."""
+    from srl_tpu_torch.srl import client, server
+
+    t0 = time.perf_counter()
+    port = free_port()
+    thread = serving(server.serve, port, device="cuda")
+    cli = within(SERVICE_TIMEOUT, client.SRLClient, KEPT["mobile dataset"], port=port)
+    t_learn = time.perf_counter()
+    cli.sendLearnSignal("autoencoder", state_dim=3, epochs=1)
+    ok, path = cli.waitForSRLModel(timeout_s=600)
+    learn_s = time.perf_counter() - t_learn
+    if not ok or not os.path.isfile(path):
+        raise AssertionError(f"12a: LEARN answered ({ok}, {path})")
+    with open(os.path.join(os.path.dirname(path), "history.json")) as fh:
+        hist = json.load(fh)
+    if len(hist["history"]) != 1 or not all(map(math.isfinite, hist["history"][0].values())):
+        raise AssertionError(f"12a: history {hist['history']}")
+    log(f"[zmq] 12a LEARN over ZMQ: READY with {path} after {learn_s:.2f} s; "
+        f"{hist['images_trained']} images in {hist['seconds']:.2f} s on the card: "
+        f"{hist['img_per_s']:.0f} img/s, reconstruction {hist['history'][0]['reconstruction']:.5f}")
+
+    config = os.path.join(KEPT["root"], "srl_service.yaml")
+    with open(config, "w") as fh:
+        fh.write(f"MobileRobotGymEnv-v0:\n  log_folder: {os.path.dirname(path)}/\n"
+                 f"  autoencoder: {os.path.basename(path)}\n")
+    argv = SRL_SERVE_ARGS + ["--srl-config-file", config]
+    with served_batch(SERVED_CALL) as kept:
+        _, launches, _ = drive(torch, train, argv, counters,
+                               "12a the service's encoder (SRLEncodedEnv) 256 envs",
+                               obs_shape=(3,))
+    expected = {"render2d": 257, "render3d": 0}
+    if launches != expected:
+        raise AssertionError(f"12a: launches {launches}, not {expected}")
+    if kept["calls"] != {"render": 257, "observe": 257}:
+        raise AssertionError(f"12a: the served run rendered and encoded {kept['calls']}")
+    src, frames, obs = kept["env"], kept["frames"], kept["obs"]
+    xs, ys, bg = render2d.static_tensors(src.dim, *src.render_shape, "cuda")
+    plain = render2d.render_mobile_robot_plain(render2d.scene_params(src, kept["state"]),
+                                               xs, ys, bg)
+    if tuple(obs.shape) != (256, 3) or not torch.isfinite(obs).all():
+        raise AssertionError(f"12a: observations {tuple(obs.shape)}")
+    if not torch.equal(frames, plain):
+        raise AssertionError("12a: a served frame disagrees with the twin")
+
+    cli.data_folder = os.path.join(KEPT["root"], "no such dataset")
+    cli.sendLearnSignal("autoencoder", state_dim=3, epochs=1)
+    answer = cli.waitForSRLModel(timeout_s=SERVICE_TIMEOUT)
+    if answer != (False, None):
+        raise AssertionError(f"12a: a LEARN on a missing folder answered {answer}")
+    within(SERVICE_TIMEOUT, cli.waitReady)
+    cli.close()
+    stopped(thread, "12a")
+    log(f"[zmq] 12a: observations {tuple(obs.shape)}; the {frames.shape[0]} frames "
+        f"{tuple(frames.shape[1:])} of the served run's render {SERVED_CALL} equal the "
+        f"twin's bit for bit; a LEARN on a missing "
+        f"folder answered ERROR, then HELLO answered READY; EXIT stopped the server; "
+        f"launches {launches}; 12a took {time.perf_counter() - t0:.1f} s")
+    return launches["render2d"]
+
+
+def sim_loopback(torch) -> None:
+    """Step 12b: one Omnirobot episode over loopback against the env
+    stepped in process."""
+    from srl_tpu_torch.envs.omnirobot import OmniRobotEnv
+    from srl_tpu_torch.real_robots import constants, remote_env, sim_server
+
+    t0 = time.perf_counter()
+    n_steps = constants.Omnirobot.MAX_STEPS + 1
+    actions = np.random.default_rng(0).integers(0, 4, n_steps)
+    port = free_port()
+    srv = sim_server.OmniRobotSimServer(port, seed=0, device="cuda")
+    thread = serving(srv.serve_forever)
+    env = within(SERVICE_TIMEOUT, remote_env.OmniRobotRemoteEnv, port=port)
+
+    def episode():
+        got = [(env.reset(), 0.0, False, env.getGroundTruth(), env.getTargetPos())]
+        t_steps = time.perf_counter()
+        for a in actions:
+            obs, reward, done, _ = env.step(int(a))
+            got.append((obs, reward, done, env.getGroundTruth(), env.getTargetPos()))
+        return got, time.perf_counter() - t_steps
+
+    got, step_s = within(SERVICE_TIMEOUT, episode)
+    within(SERVICE_TIMEOUT, env.close)
+    stopped(thread, "12b")
+
+    local = OmniRobotEnv(srl_model="raw_pixels")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state, reward = local.reset(gen, 1), torch.zeros(1)
+    local_s = 0.0  # what the server does for a step: step, render, frame to the host
+    for t, (obs, r, done, pos, target) in enumerate(got):
+        t_local = time.perf_counter()
+        if t:
+            state, reward, _ = local.step(
+                state, torch.tensor([int(actions[t - 1])], dtype=torch.int32, device="cuda"), gen)
+        frame = local.render_pixels(state)[0].cpu().numpy()
+        local_s += (time.perf_counter() - t_local) if t else 0.0
+        if not (np.array_equal(obs, frame) and r == float(reward[0])
+                and np.array_equal(pos, state.robot_pos[0].cpu().numpy())
+                and np.array_equal(target, state.target_pos[0].cpu().numpy())):
+            raise AssertionError(f"12b: step {t} over the socket differs from the env")
+        if done != (t == n_steps):
+            raise AssertionError(f"12b: done {done} at step {t}")
+    bumps = sum(r == -1.0 for _, r, _, _, _ in got)
+    log(f"[zmq] 12b Omnirobot over loopback: reset and {n_steps} steps, done at step "
+        f"{n_steps}; every frame {got[0][0].shape} {got[0][0].dtype} ({got[0][0].nbytes} bytes), "
+        f"reward and position equals the in-process env on the card bit for bit ({bumps} wall "
+        f"bumps); {n_steps / step_s:.0f} steps/s over loopback ({step_s * 1e3 / n_steps:.3f} ms "
+        f"a round trip, of which the env's step, render and copy to the host take "
+        f"{local_s * 1e3 / n_steps:.3f} ms in process; {got[0][0].nbytes * n_steps / step_s / 1e6:.1f} "
+        f"MB/s of frames); 12b took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1551,6 +1769,15 @@ def main() -> int:
     host_tools(torch, found["matplotlib"] is not None)
     log(f"[replay] launches: {json.dumps(enjoy_launches)}; step 11 took "
         f"{time.perf_counter() - t_step11:.1f} s")
+    t_step12 = time.perf_counter()
+
+    # 12. The ZMQ layer: the SRL service and the Omnirobot simulator server.
+    import zmq
+
+    log(f"[zmq] pyzmq {zmq.__version__}, libzmq {zmq.zmq_version()}")
+    srl_server_launches = srl_service(torch, train, counters, render2d)
+    sim_loopback(torch)
+    log(f"[zmq] step 12 took {time.perf_counter() - t_step12:.1f} s")
     kept.cleanup()
     log(f"[done] {time.perf_counter() - t_start:.1f} s after start-up")
 
@@ -1584,6 +1811,7 @@ def main() -> int:
         "ddpg_launches": last_launches["10b"],
         "cmaes_launches": last_launches["10d"],
         "enjoy_launches": enjoy_launches["11b"],
+        "srl_server_launches": srl_server_launches,
         "max_abs_err": r2_err,
         "ms": r2_ms,
         "plain_ms": r2_plain_ms,

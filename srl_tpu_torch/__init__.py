@@ -6,3 +6,5 @@ the reference that every module here is tested against. Plain tensor code is
 PyTorch; the TPU's Pallas kernels become hand-written CUDA kernels under
 ``csrc/``, each with a plain PyTorch twin beside its wrapper.
 """
+
+__version__ = "0.1.0"

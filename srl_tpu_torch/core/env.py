@@ -137,6 +137,9 @@ class BatchedEnv(abc.ABC):
         raise NotImplementedError
 
 
+TpuEnv = BatchedEnv  # the reference's name of the env base class
+
+
 class VecEnv:
     """Auto-resetting vector of ``num_envs`` envs.
 

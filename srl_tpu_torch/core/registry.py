@@ -29,3 +29,6 @@ class Registry(Generic[T]):
 
     def keys(self):
         return self._entries.keys()
+
+    def items(self):
+        return self._entries.items()

@@ -425,6 +425,10 @@ class KukaButtonEnv(BatchedEnv):
     def ground_truth_dim() -> int:
         return 3
 
+    @staticmethod
+    def joints_dim() -> int:
+        return 14
+
     def ground_truth(self, state: KukaState) -> torch.Tensor:
         return state.gripper
 

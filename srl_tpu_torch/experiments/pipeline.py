@@ -2,7 +2,7 @@
 (counterpart of srl_tpu/experiments/pipeline.py).
 
 ``validate_srl_models`` checks ``config/srl_models.yaml`` (read without
-PyYAML, ``utils/srl_models_yaml``) for every requested env, as the
+PyYAML, ``utils/yaml_subset``) for every requested env, as the
 reference does, then ``run_grid`` trains each run in this process through
 ``experiments/train.main``; a failed run raises ``ChildProcessError``.
 Arguments the pipeline does not know pass on to every run.
@@ -22,14 +22,14 @@ from srl_tpu_torch.envs.registry import registered_env
 from srl_tpu_torch.srl import SRLType
 from srl_tpu_torch.srl.registry import registered_srl
 from srl_tpu_torch.utils.logging import printGreen, printYellow
-from srl_tpu_torch.utils.srl_models_yaml import read_srl_models
+from srl_tpu_torch.utils.yaml_subset import read_yaml_subset
 
 
 def validate_srl_models(srl_models: list, envs: list, config_file: str):
     """Every env and srl model is registered, and every learned model is
     declared for every env in ``config_file`` (a missing checkpoint only
     warns: it may be trained later)."""
-    all_models = read_srl_models(config_file)
+    all_models = read_yaml_subset(config_file) or {}
     for env in envs:
         assert env in registered_env, f"Error: unknown env {env}"
         for model in srl_models:

@@ -94,7 +94,7 @@ from srl_tpu_torch.srl import SRLType
 from srl_tpu_torch.srl.registry import registered_srl
 from srl_tpu_torch.utils.logging import printGreen, printYellow
 from srl_tpu_torch.utils.monitor import MonitorWriter
-from srl_tpu_torch.utils.srl_models_yaml import read_srl_models
+from srl_tpu_torch.utils.yaml_subset import read_yaml_subset
 
 N_EPISODES_EVAL = 100
 DEFAULT_NUM_ENVS = 16
@@ -215,12 +215,8 @@ def srl_model_path(args):
         return None
     if args.latest:
         printYellow("Using latest srl model")
-        pattern = os.path.join("srl_logs", args.env, "**", "srl_model.pkl")
-        candidates = glob.glob(pattern, recursive=True)
-        if not candidates:
-            raise FileNotFoundError(f"No trained SRL models found under srl_logs/{args.env}")
-        return max(candidates, key=os.path.getmtime)
-    all_models = read_srl_models(args.srl_config_file)
+        return latest_srl_model(args)
+    all_models = read_yaml_subset(args.srl_config_file) or {}
     if args.env not in all_models:
         raise KeyError(f"environment '{args.env}' not in srl config file "
                        f"'{args.srl_config_file}'")
@@ -228,6 +224,16 @@ def srl_model_path(args):
     if args.srl_model not in models:
         raise KeyError(f"srl_model '{args.srl_model}' not in config for env {args.env}")
     return os.path.join(models.get("log_folder", ""), models[args.srl_model])
+
+
+def latest_srl_model(args) -> str:
+    """The newest ``srl_logs/{env}/**/srl_model.pkl`` by modification time
+    (``--latest``)."""
+    pattern = os.path.join("srl_logs", args.env, "**", "srl_model.pkl")
+    candidates = glob.glob(pattern, recursive=True)
+    if not candidates:
+        raise FileNotFoundError(f"No trained SRL models found under srl_logs/{args.env}")
+    return max(candidates, key=os.path.getmtime)
 
 
 def build_env(args, device="cuda"):

@@ -54,3 +54,15 @@ def pixel_rays(
     dirs = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
     return eye.astype(np.float32), dirs.astype(np.float32)
 
+
+def ground_grid(camera_target, distance, yaw, pitch, roll, fov_deg, width, height,
+                ground_z=0.0):
+    """World (x, y) of each pixel ray's intersection with the z=ground_z
+    plane, [H, W, 2] float32. Pixels whose rays miss the plane get NaN."""
+    eye, dirs = pixel_rays(camera_target, distance, yaw, pitch, roll, fov_deg, width, height)
+    dz = dirs[..., 2]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t = (ground_z - eye[2]) / dz
+    t = np.where(t > 0, t, np.nan)
+    xy = eye[None, None, :2] + t[..., None] * dirs[..., :2]
+    return xy.astype(np.float32)

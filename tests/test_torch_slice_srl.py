@@ -25,7 +25,7 @@ from srl_tpu.srl import models as jmodels
 from srl_tpu_torch.data import dataset_generator
 from srl_tpu_torch.experiments import train, train_srl
 from srl_tpu_torch.srl import models as tmodels
-from srl_tpu_torch.utils.srl_models_yaml import parse_srl_models, read_srl_models
+from srl_tpu_torch.utils.yaml_subset import parse_yaml_subset, read_yaml_subset
 
 torch.set_num_threads(1)
 
@@ -123,7 +123,7 @@ def test_latest_and_config_errors(workflow, monkeypatch):
 @pytest.mark.parametrize("name", ["srl_models.yaml", "srl_models_test.yaml"])
 def test_yaml_reader_equals_safe_load_on_the_config_files(name):
     path = REPO / "config" / name
-    assert read_srl_models(str(path)) == yaml.safe_load(path.read_text())
+    assert read_yaml_subset(str(path)) == yaml.safe_load(path.read_text())
 
 
 YAML_CASES = [
@@ -131,16 +131,18 @@ YAML_CASES = [
     "# only a comment\n\nA:\n\n  k: v # c\nB:\n",
     "A:\n    four: p/q.pkl\n    spaces: 1\nB:\n  two: x\n",
     "top: 3\nA:\n  f: 1.5\n  t: true\n  n: null\n  s: 'true'\n  h: a#b\n",
+    "A:\n  e: 1e5\n  f: 1.0e+5\n",  # YAML 1.1: the first is a string
 ]
 
 
 @pytest.mark.parametrize("text", YAML_CASES)
 def test_yaml_reader_equals_safe_load_on_its_subset(text):
-    assert parse_srl_models(text) == yaml.safe_load(text)
+    assert parse_yaml_subset(text) == yaml.safe_load(text)
 
 
 @pytest.mark.parametrize("text", ["A:\n  - x\n", "A: {b: 1}\n", "A:\n  b:\n    c: 1\n",
-                                  "A:\n  b: &x 1\n", "A:\n    b: 1\n  c: 2\n"])
+                                  "A:\n  b: &x 1\n", "A:\n    b: 1\n  c: 2\n",
+                                  "A:\n  b: 017\n"])  # octal: safe_load reads 15
 def test_yaml_reader_refuses_what_it_does_not_read(text):
     with pytest.raises(ValueError):
-        parse_srl_models(text)
+        parse_yaml_subset(text)
