@@ -140,7 +140,30 @@ Phases, each reported on its own lines; any failure exits non-zero:
    reward and position that arrives over the socket equals, bit for bit,
    the in-process ``OmniRobotEnv`` stepped on the card from the same
    generator seed and actions; the loopback steps/s and the bytes per frame
-   are printed. Each phase prints its seconds.
+   are printed. Each phase prints its seconds;
+13. the data-parallel layer (``srl_tpu_torch.parallel``) through
+   ``srl_tpu_torch.parallel.dp_ppo``, PPO2 with its state laid out by
+   ``shard_ppo_state``: 13a, a one-rank NCCL world in this process
+   (``distributed.initialize(device="cuda")`` with ``WORLD_SIZE=1``) runs the
+   Kuka pixel run (256 envs, 112x112 coarse traces, the Nature CNN, 2
+   updates); its losses and parameters equal the same run without a mesh
+   within the reference's one-update bar (pg_loss 1e-4, parameters 1e-3),
+   and render3d launches as often (1 + 2 x 128). 13b, two processes on the
+   one card (each on cuda:0), joined by gloo over 127.0.0.1, run MobileRobot
+   224x224 pixels at 256 global envs (128 a rank) for 2 updates, after 260
+   steps of fixed actions whose rewards, dones and per-env frame
+   fingerprints equal, bit for bit, one process stepping all 256 envs;
+   pg_loss is within the reference's curve bar (5e-3) of that process's run
+   and the parameters within a tenth of the step they took (a rank's
+   bfloat16 convolutions round its rows otherwise: see STEP_RTOL), and
+   render2d launches 2 x 128 times on each rank at N=128. 13c, the
+   reference's mixed pod (Kuka + Omnirobot pixels, 256 global envs over two
+   processes, 1 update, 64 fingerprinted steps): each rank holds one
+   family, so rank 0 traces its 128 Kuka envs with render3d and rank 1
+   launches no kernel; the same checks. Each prints
+   the global and per-rank env-steps/s, the collectives' seconds an update,
+   each rank's launches and peak memory. The child processes run under a
+   hard timeout and are killed on failure.
 
 The line before the last is a JSON object with each kernel's numbers, the
 last ``{"ok": true, "device": {...}}``. Needs the card and the rest of the
@@ -1623,6 +1646,180 @@ def sim_loopback(torch) -> None:
         f"MB/s of frames); 12b took {time.perf_counter() - t0:.1f} s")
 
 
+# Step 13's runs, each PPO2 at the reference's widths (srl_tpu_torch.parallel.dp_ppo).
+DP_KUKA_ARGS = ["--env", "KukaButtonGymEnv-v0", "--srl-model", "raw_pixels", "--render-scale",
+                "2", "--coarse-obs", "--num-envs", "256", "--updates", "2"]
+DP_MOBILE_ARGS = ["--env", "MobileRobotGymEnv-v0", "--srl-model", "raw_pixels",
+                  "--num-envs", "256", "--updates", "2", "--fingerprint-steps", "260"]
+DP_MIXED_ARGS = ["--env", "KukaButtonGymEnv-v0", "--mixed-envs", "KukaButtonGymEnv-v0",
+                 "OmnirobotEnv-v0", "--srl-model", "raw_pixels", "--render-scale", "2",
+                 "--num-envs", "256", "--updates", "1", "--fingerprint-steps", "64"]
+DP_CHILD_TIMEOUT = 240.0  # seconds both ranks of 13b or 13c may take
+# The reference's bar for a dp update against one process
+# (tests/test_sharding.py:68-93): pg_loss rtol 1e-4 (atol 1e-5), parameters
+# rtol 1e-3 (atol 1e-5). 13a's one rank runs the policy over the batch one
+# process runs it over, and is held to it for every update. In 13b and 13c a
+# rank runs the policy's bfloat16 convolutions over its own rows, which cuDNN
+# rounds otherwise than the whole batch (measured on an H100: a 256-row
+# forward and two 128-row ones 2.4e-4 apart in the logits and 0.014 in the
+# values; one update over 2 ranks from the same data 1.2% apart in pg_loss,
+# up to 8.3e-4 in a parameter), and Adam's per-element step turns that
+# rounding into a parameter difference of about 4% of the step the
+# parameters took. They are held to the reference's curve bar on pg_loss
+# (:96-123: rtol 5e-3, atol 1e-4) and to the step: |p_dp - p_one| <=
+# STEP_RTOL |p_one - p_0| over the whole vector. A dp update that leaves the
+# gradients unreduced lands about 75% of the step away.
+PG_RTOL, PG_ATOL, PARAM_RTOL, PARAM_ATOL = 1e-4, 1e-5, 1e-3, 1e-5
+CURVE_RTOL, CURVE_ATOL = 5e-3, 1e-4
+STEP_RTOL = 0.1
+
+
+def hold_dp(torch, got: dict, want: dict, what: str, own_rows: bool) -> str:
+    """pg_loss and parameters of a dp run against the one-process run's
+    (``own_rows``: each rank runs the policy over its own rows; see above);
+    returns the differences."""
+    pg, pg_want = np.asarray(got["pg_loss"]), np.asarray(want["pg_loss"])
+    params, params_want = got["params"].double(), want["params"].double()
+    step = (params_want - want["params0"].double()).norm().item()
+    off = (params - params_want).norm().item()
+    rtol, atol = (CURVE_RTOL, CURVE_ATOL) if own_rows else (PG_RTOL, PG_ATOL)
+    ok = bool(np.all(np.abs(pg - pg_want) <= atol + rtol * np.abs(pg_want)))
+    if own_rows:
+        ok = ok and off <= STEP_RTOL * step
+    else:
+        ok = ok and bool(((params - params_want).abs()
+                          <= PARAM_ATOL + PARAM_RTOL * params_want.abs()).all())
+    diff = (f"pg_loss {pg.tolist()} vs {pg_want.tolist()} (|diff| "
+            f"{np.abs(pg - pg_want).tolist()}); parameters max |diff| "
+            f"{(params - params_want).abs().max().item():.3g}, |p_dp - p_one| {off:.4g} of "
+            f"the step |p_one - p_0| {step:.4g} ({off / step:.3%})")
+    if not ok:
+        bar = (f"pg_loss rtol {rtol} atol {atol}, "
+               + (f"|p_dp - p_one| <= {STEP_RTOL} |p_one - p_0|" if own_rows else
+                  f"parameters rtol {PARAM_RTOL} atol {PARAM_ATOL}"))
+        raise AssertionError(f"{what}: not within {bar}: {diff}")
+    return diff
+
+
+def dp_rates(results: list, card: str) -> str:
+    rates = ", ".join(f"rank {r['rank']} {r['rank_env_steps_per_s']:.0f}" for r in results)
+    coll = "; ".join(f"rank {r['rank']} " + "/".join(f"{c:.3f}" for c in r["collective_s"])
+                     for r in results)
+    mem = ", ".join(f"rank {r['rank']} {r['peak_mem_gb']:.2f} GB" for r in results)
+    return (f"{results[0]['env_steps_per_s']:.0f} env-steps/s global ({rates}); collectives "
+            f"s an update: {coll}; peak memory {mem}; {card}")
+
+
+def nccl_one_rank(torch, card: str) -> dict:
+    """Step 13a: the Kuka pixel run on a one-rank NCCL world against the same
+    run without a mesh; returns the meshed run's result."""
+    import torch.distributed as tdist
+
+    from srl_tpu_torch.parallel import distributed, dp_ppo
+
+    t0 = time.perf_counter()
+    args, env_argv = dp_ppo.build_parser().parse_known_args(DP_KUKA_ARGS)
+    saved = {k: os.environ.get(k) for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")}
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), WORLD_SIZE="1",
+                      RANK="0")
+    try:
+        if not distributed.initialize(device="cuda"):
+            raise AssertionError("13a: initialize() set up no process group")
+        mesh = distributed.make_global_mesh()
+        distributed.warmup_collectives(mesh)
+        if (tdist.get_backend(), mesh.shape) != ("nccl", {"dp": 1, "tp": 1}):
+            raise AssertionError(f"13a: {tdist.get_backend()} mesh {mesh.shape}")
+        meshed = dp_ppo.run(args, env_argv, mesh)
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    plain = dp_ppo.run(args, env_argv)
+    diff = hold_dp(torch, meshed, plain, "13a", own_rows=False)
+    launches = [r["init_launches"]["render3d"] + r["launches"]["render3d"]
+                for r in (meshed, plain)]
+    if launches != [257, 257] or meshed["launches"]["render2d"]:
+        raise AssertionError(f"13a: render3d launched {launches} times (meshed, plain), not 257")
+    log(f"[dp] 13a Kuka pixels, one NCCL rank: {diff}; render3d {launches[0]} launches as "
+        f"without the mesh ({plain['env_steps_per_s']:.0f} env-steps/s there); "
+        + dp_rates([meshed], card) + f"; 13a took {time.perf_counter() - t0:.1f} s")
+    return meshed
+
+
+def gloo_pair(torch, argv: list, what: str, card: str, kernel: str, expected: list) -> list:
+    """Steps 13b and 13c: ``dp_ppo`` in two processes on the one card, joined
+    by gloo over 127.0.0.1, against one process stepping the whole batch.
+    The processes start first and wait, once in their world, for the
+    one-process run to end; they are killed on failure. ``expected`` is each
+    rank's launches of ``kernel`` while training. Returns the ranks'
+    results."""
+    from srl_tpu_torch.parallel import dp_ppo
+
+    t0 = time.perf_counter()
+    args, env_argv = dp_ppo.build_parser().parse_known_args(argv)
+    with tempfile.TemporaryDirectory() as out:
+        gate = os.path.join(out, "start")
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+                   WORLD_SIZE="2", GLOO_SOCKET_IFNAME="lo")
+        cmd = [sys.executable, "-m", "srl_tpu_torch.parallel.dp_ppo", *argv, "--backend",
+               "gloo", "--timeout", str(int(DP_CHILD_TIMEOUT)), "--out", out,
+               "--start-after", gate]
+        procs = []
+        try:
+            for rank in range(2):
+                procs.append(subprocess.Popen(cmd, cwd=REPO, env={**env, "RANK": str(rank)},
+                                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                              text=True))
+            one = dp_ppo.run(args, env_argv)
+            torch.cuda.empty_cache()
+            t_ranks = time.perf_counter()
+            open(gate, "w").close()
+            deadline = time.monotonic() + DP_CHILD_TIMEOUT
+            outs = [p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+                    for p in procs]
+            ranks_s = time.perf_counter() - t_ranks
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for p, (stdout, stderr) in zip(procs, outs):
+            if p.returncode != 0:
+                raise AssertionError(f"{what}: a rank exited {p.returncode}:\n{stdout[-3000:]}"
+                                     f"\n{stderr[-3000:]}")
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(2)]
+    rows = args.num_envs // 2
+    if [(r["rank"], r["dp"], r["rows"], r["backend"]) for r in ranks] != [
+            (0, 2, rows, "gloo"), (1, 2, rows, "gloo")]:
+        raise AssertionError(f"{what}: ranks {[(r['rank'], r['rows']) for r in ranks]}")
+    if ranks[0]["pg_loss"] != ranks[1]["pg_loss"] or not torch.equal(ranks[0]["params"],
+                                                                      ranks[1]["params"]):
+        raise AssertionError(f"{what}: the ranks disagree on pg_loss or the parameters")
+    for name, want in one["fingerprints"].items():
+        got = torch.cat([r["fingerprints"][name] for r in ranks], 1)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: the ranks' {name} differ from one process's")
+    steps, resets = one["fingerprints"]["done"].shape[0], int(one["fingerprints"]["done"].sum())
+    diff = hold_dp(torch, ranks[0], one, what, own_rows=True)
+    launches = [r["launches"][kernel] for r in ranks]
+    if launches != expected:
+        raise AssertionError(f"{what}: {kernel} launched {launches} times, not {expected}")
+    log(f"[dp] {what}: rewards, dones and frame fingerprints of {steps} steps ({resets} "
+        f"auto-resets) equal one process stepping all {args.num_envs} envs bit for bit; "
+        f"{diff}; {kernel} {launches} launches while training (N={rows} a rank; the reset "
+        f"before, {[r['init_launches'][kernel] for r in ranks]}, at the global batch); "
+        f"families {ranks[0]['family_counts']}; one process {one['env_steps_per_s']:.0f} "
+        f"env-steps/s; the ranks' collectives are gloo's allreduce and allgather on card "
+        f"tensors, which gloo stages through host memory itself; " + dp_rates(ranks, card)
+        + f"; the ranks ran {ranks_s:.1f} s after the one-process run, {what} "
+        f"{time.perf_counter() - t0:.1f} s")
+    return ranks
+
+
 def main() -> int:
     import torch
 
@@ -1778,6 +1975,16 @@ def main() -> int:
     srl_server_launches = srl_service(torch, train, counters, render2d)
     sim_loopback(torch)
     log(f"[zmq] step 12 took {time.perf_counter() - t_step12:.1f} s")
+    t_step13 = time.perf_counter()
+
+    # 13. The data-parallel layer.
+    torch.cuda.empty_cache()
+    dp_kuka = nccl_one_rank(torch, card)
+    dp_mobile = gloo_pair(torch, DP_MOBILE_ARGS, "13b MobileRobot 224x224 pixels, 2 gloo ranks",
+                          card, "render2d", [256, 256])
+    dp_mixed = gloo_pair(torch, DP_MIXED_ARGS, "13c mixed Kuka + Omnirobot pixels, 2 gloo ranks",
+                         card, "render3d", [128, 0])
+    log(f"[dp] step 13 took {time.perf_counter() - t_step13:.1f} s")
     kept.cleanup()
     log(f"[done] {time.perf_counter() - t_start:.1f} s after start-up")
 
@@ -1794,6 +2001,8 @@ def main() -> int:
         "ars_launches": last_launches["10c"],
         "random_agent_launches": last_launches["10e"],
         "enjoy_launches": enjoy_launches["11a"],
+        "dp_nccl_launches": dp_kuka["init_launches"]["render3d"] + dp_kuka["launches"]["render3d"],
+        "dp_mixed_rank0_launches": dp_mixed[0]["launches"]["render3d"],
         "max_abs_err": max(r3_err, mb["max_abs_err"]),
         "ms": r3_ms,
         "plain_ms": r3_plain_ms,
@@ -1812,6 +2021,7 @@ def main() -> int:
         "cmaes_launches": last_launches["10d"],
         "enjoy_launches": enjoy_launches["11b"],
         "srl_server_launches": srl_server_launches,
+        "dp_rank0_launches": dp_mobile[0]["launches"]["render2d"],
         "max_abs_err": r2_err,
         "ms": r2_ms,
         "plain_ms": r2_plain_ms,

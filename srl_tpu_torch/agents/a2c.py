@@ -24,7 +24,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from srl_tpu_torch.agents.base import BaseRLAgent, PPOState
+from srl_tpu_torch.agents.base import BaseRLAgent, PPOState, refuse_mesh
 from srl_tpu_torch.agents.common import collect_rollout, compute_gae, explained_variance
 from srl_tpu_torch.agents.ppo import EMPTY_STATE, SCHEDULE_STATE, clip_by_global_norm_
 from srl_tpu_torch.agents.recurrent_ppo import RecurrentPolicyMixin, RecurrentPPOState
@@ -127,6 +127,7 @@ class A2C(BaseRLAgent):
                         cfg.alpha, cfg.epsilon)
 
     def train_iteration(self, state: PPOState, gen: torch.Generator):
+        refuse_mesh(self, state)
         cfg = self.config
         policy = lambda obs: self.apply(state.params, obs)
         vstate, obs, obs_norm, last_norm_obs, batch = collect_rollout(
@@ -192,6 +193,7 @@ class RecurrentA2C(RecurrentPolicyMixin, A2C):
         return dist, vpred
 
     def train_iteration(self, state: RecurrentPPOState, gen: torch.Generator):
+        refuse_mesh(self, state)
         cfg = self.config
         vstate, obs, done, carry, obs_norm, batch, last_value = self.rollout(state, gen)
         advantages, returns = compute_gae(batch.rewards, batch.values, batch.dones,

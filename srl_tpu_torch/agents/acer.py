@@ -64,7 +64,7 @@ from torch.func import functional_call
 
 from srl_tpu_torch import bridge
 from srl_tpu_torch.agents.a2c import RMS_STATE
-from srl_tpu_torch.agents.base import BaseRLAgent, RecurrentActing
+from srl_tpu_torch.agents.base import BaseRLAgent, RecurrentActing, refuse_mesh
 from srl_tpu_torch.agents.buffers import DeviceStore, torch_dtype
 from srl_tpu_torch.agents.ppo import EMPTY_STATE, clip_by_global_norm_
 from srl_tpu_torch.bridge import Record
@@ -433,6 +433,7 @@ class ACER(BaseRLAgent):
         ``replay_idx`` [replay_ratio], when given, replace the draws from
         ``gen``. The buffer is updated in place; the parameters and
         optimizer state are new."""
+        refuse_mesh(self, state)
         cfg = self.config
         vstate, obs, obs_norm, done, carry, seg, ep_ret, ep_len = self.rollout(
             state, gen, gumbel)

@@ -54,7 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from srl_tpu_torch import bridge
-from srl_tpu_torch.agents.base import BaseRLAgent, RecurrentActing
+from srl_tpu_torch.agents.base import BaseRLAgent, RecurrentActing, refuse_mesh
 from srl_tpu_torch.agents.common import (collect_recurrent_rollout, collect_rollout,
                                          compute_gae)
 from srl_tpu_torch.core.device import resolve_device
@@ -404,6 +404,7 @@ class ACKTR(BaseRLAgent):
 
     def train_iteration(self, state, gen: torch.Generator):
         """One update: the segment, then K-FAC."""
+        refuse_mesh(self, state)
         env_fields, data, batch = self.rollout(state, gen)
         params, momentum, kfac_A, kfac_G, metrics = self.update(state, data, gen)
         metrics["episode_return"] = batch.episode_return

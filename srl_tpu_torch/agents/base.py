@@ -48,6 +48,16 @@ class PPOState:
     obs: Optional[torch.Tensor]
     obs_norm: Optional[RunningNorm]
     update_idx: int = 0
+    # The data-parallel mesh the state is laid out on
+    # (``parallel.shard_ppo_state``: PPO2 only), else None.
+    mesh: Optional[object] = None
+
+
+def refuse_mesh(agent, state) -> None:
+    """Only PPO2 trains a state laid out on a mesh, as in the reference."""
+    if getattr(state, "mesh", None) is not None:
+        raise ValueError(f"{type(agent).__name__} does not train data-parallel: only PPO2 "
+                         f"(feed-forward) takes a state from parallel.shard_ppo_state")
 
 
 class BaseRLAgent:

@@ -42,11 +42,17 @@ def collect_rollout(
     gen: torch.Generator,
     n_steps: int,
     store_states: bool = False,
+    mesh=None,
 ) -> Tuple[VecEnvState, torch.Tensor, Optional[RunningNorm], torch.Tensor, RolloutBatch]:
     """``n_steps`` of (policy -> env step -> auto-reset). The normalizer
     statistics update online during collection. ``policy(obs)`` returns
     (distribution, value). Returns (vstate', last_obs, obs_norm',
     last_norm_obs, batch).
+
+    With ``mesh`` (a ``parallel.mesh.Mesh``), ``vstate`` and ``obs`` hold
+    the rank's rows of the env batch: actions and env noise are drawn for the
+    whole batch and the rank keeps its rows, and the normalizer updates from
+    every rank's observations.
 
     ``store_states=True`` records each step's pre-step ``vstate.env_state``
     instead of its observation (``env.observe(env_state_t)`` is obs_t), for
@@ -56,18 +62,19 @@ def collect_rollout(
         "store_states re-renders observations in the update; online "
         "normalization statistics cannot be replayed"
     )
+    rows = None if mesh is None else (mesh.env_slice(vec_env.num_envs)[0], vec_env.num_envs)
     observed, steps = [], []
     for _ in range(n_steps):
         if obs_norm is not None:
-            obs_norm = obs_norm.update(obs)
+            obs_norm = obs_norm.update(obs, mesh)
             norm_obs = obs_norm.normalize(obs)
         else:
             norm_obs = obs
         dist, value = policy(norm_obs)
-        action = dist.sample(gen)
+        action = dist.sample(gen, rows)
         log_prob = dist.log_prob(action)
         observed.append(vstate.env_state if store_states else norm_obs)
-        vstate, tr = vec_env.step(vstate, action, gen)
+        vstate, tr = vec_env.step(vstate, action, gen, mesh=mesh)
         steps.append((action, log_prob, value, tr.reward, tr.done,
                       tr.episode_return, tr.episode_length))
         obs = tr.obs
@@ -143,9 +150,15 @@ def compute_gae(rewards, values, dones, last_value, gamma: float, lam: float):
     return advantages, advantages + values
 
 
-def explained_variance(y_pred: torch.Tensor, y_true: torch.Tensor) -> torch.Tensor:
-    var_y = torch.var(y_true, unbiased=False)
-    ev = 1 - torch.var(y_true - y_pred, unbiased=False) / var_y
+def explained_variance(y_pred: torch.Tensor, y_true: torch.Tensor, mesh=None) -> torch.Tensor:
+    """1 - var(y_true - y_pred) / var(y_true), NaN where var(y_true) is 0;
+    with ``mesh``, over the flat batches of every rank."""
+    if mesh is None:
+        var = lambda x: torch.var(x, unbiased=False)
+    else:
+        var = lambda x: mesh.moments(x.reshape(-1))[1]
+    var_y = var(y_true)
+    ev = 1 - var(y_true - y_pred) / var_y
     return torch.where(var_y == 0, torch.nan, ev)
 
 

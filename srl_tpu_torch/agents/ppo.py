@@ -32,6 +32,17 @@ Beyond one update:
 Parameters are a plain ``{name: tensor}`` dict applied with
 ``torch.func.functional_call``, so ``update_epochs`` is a function of
 (params, Adam state, data, permutations) like the reference's scanned epochs.
+
+Data-parallel (``parallel.shard_ppo_state``): a state laid out on a dp mesh
+holds the rank's rows ``[lo, hi)`` of the env batch. The rollout draws for
+the whole batch and keeps the rank's rows; every rank draws the same
+permutations of the global flat batch ``g = t * N + n``, and rank ``r``
+owns the rows with ``lo <= g % N < hi``, locally at ``(g // N) * (N / dp) +
+g % N - lo``. Each global minibatch's loss terms are the sums over the owned
+rows divided by the global minibatch size, its advantages normalized with
+the global mean and std (two all-reduces); the gradients are all-reduced
+with SUM before the clip and Adam, so every rank takes the same step. The
+metrics are reduced, the episode statistics gathered.
 """
 from __future__ import annotations
 
@@ -42,7 +53,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from srl_tpu_torch.agents.base import BaseRLAgent, PPOState
+from srl_tpu_torch.agents.base import BaseRLAgent, PPOState, refuse_mesh
 from srl_tpu_torch.agents.common import collect_rollout, compute_gae, explained_variance
 from srl_tpu_torch.bridge import Record
 from srl_tpu_torch.core.device import resolve_device
@@ -105,7 +116,7 @@ class PPO2(BaseRLAgent):
         self.num_envs = num_envs
         self.config = config or PPOConfig()
         self.policy_kind = policy
-        # Mixed-family envs: the family-slice alignment (None: one device,
+        # Mixed-family envs: the family-slice alignment (None:
         # core/mixed_env.default_align).
         self.env_align = env_align
         self.recompute_obs = recompute_obs
@@ -191,22 +202,25 @@ class PPO2(BaseRLAgent):
         return self._objective(dist, vpred, *rest, cliprange)
 
     def _objective(self, dist, vpred, actions, old_logp, old_values, advantages, returns,
-                   cliprange):
+                   cliprange, mean=torch.mean, adv_stats=None):
         """(the clipped PPO loss, its parts) of the minibatch's policy
-        outputs."""
+        outputs. On a mesh, ``mean`` is a rank's share of the global
+        minibatch's mean and ``adv_stats`` the global (mean, std) of its
+        advantages."""
         logp = dist.log_prob(actions)
-        entropy = torch.mean(dist.entropy())
+        entropy = mean(dist.entropy())
 
-        advantages = ((advantages - advantages.mean())
-                      / (advantages.std(unbiased=False) + 1e-8))
+        if adv_stats is None:
+            adv_stats = (advantages.mean(), advantages.std(unbiased=False))
+        advantages = (advantages - adv_stats[0]) / (adv_stats[1] + 1e-8)
         ratio = torch.exp(logp - old_logp)
         pg1 = -advantages * ratio
         pg2 = -advantages * torch.clamp(ratio, 1.0 - cliprange, 1.0 + cliprange)
-        pg_loss = torch.mean(torch.maximum(pg1, pg2))
+        pg_loss = mean(torch.maximum(pg1, pg2))
 
         vpred_clipped = old_values + torch.clamp(vpred - old_values, -cliprange, cliprange)
-        vf_loss = 0.5 * torch.mean(torch.maximum(torch.square(vpred - returns),
-                                                 torch.square(vpred_clipped - returns)))
+        vf_loss = 0.5 * mean(torch.maximum(torch.square(vpred - returns),
+                                           torch.square(vpred_clipped - returns)))
         cfg = self.config
         total = pg_loss - cfg.ent_coef * entropy + cfg.vf_coef * vf_loss
         with torch.no_grad():
@@ -214,18 +228,40 @@ class PPO2(BaseRLAgent):
                 "pg_loss": pg_loss.detach(),
                 "vf_loss": vf_loss.detach(),
                 "entropy": entropy.detach(),
-                "approx_kl": 0.5 * torch.mean(torch.square(logp - old_logp)),
-                "clip_frac": torch.mean(
-                    (torch.abs(ratio - 1.0) > cliprange).to(torch.float32)),
+                "approx_kl": 0.5 * mean(torch.square(logp - old_logp)),
+                "clip_frac": mean((torch.abs(ratio - 1.0) > cliprange).to(torch.float32)),
             }
         return total, aux
 
-    def update_epochs(self, params, opt_state, data, perms):
+    def _shard_loss(self, params, data, idx, mesh):
+        """(loss, parts) of this rank's share of the global minibatch ``idx``
+        of flat indices ``t * N + n``: the rows with ``n`` in the rank's env
+        slice, their terms summed and divided by the global minibatch size,
+        the advantages normalized with the global mean and std. (None, None)
+        where the rank owns none of them (it still joins the all-reduces)."""
+        n = self.num_envs
+        lo, hi = mesh.env_slice(n)
+        env = idx % n
+        owned = (env >= lo) & (env < hi)
+        local = ((idx // n) * (hi - lo) + env - lo)[owned]
+        obs, *rest = self._minibatch(data, local)
+        adv_mean, adv_var, _ = mesh.moments(rest[3])
+        if local.numel() == 0:
+            return None, None
+        dist, vpred = self._minibatch_forward(params, obs)
+        mb_size = idx.shape[0]
+        return self._objective(dist, vpred, *rest, self.config.cliprange,
+                               mean=lambda x: x.sum() / mb_size,
+                               adv_stats=(adv_mean, torch.sqrt(adv_var)))
+
+    def update_epochs(self, params, opt_state, data, perms, mesh=None):
         """The shuffled minibatch epochs: ``perms`` [noptepochs, T * N] holds
         one permutation of the flat batch per epoch; ``data[0]`` is the
         observations or, with ``recompute_obs``, the env states. Returns
         (params', opt_state', metrics averaged over every minibatch); the
-        inputs are left as they are."""
+        inputs are left as they are. With ``mesh``, ``data`` holds the
+        rank's env columns [T, N / dp] flattened, ``perms`` permute the
+        global batch (module docstring)."""
         cfg = self.config
         mb_size = perms.shape[1] // cfg.nminibatches
         names = list(params)
@@ -237,23 +273,51 @@ class PPO2(BaseRLAgent):
         for perm in perms:
             for i in range(cfg.nminibatches):
                 idx = perm[i * mb_size:(i + 1) * mb_size]
-                mb = self._minibatch(data, idx)
                 leaves = {k: params[k].detach().requires_grad_(True) for k in names}
-                loss, aux = self._loss(leaves, mb, cfg.cliprange)
-                grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+                if mesh is None:
+                    loss, aux = self._loss(leaves, self._minibatch(data, idx), cfg.cliprange)
+                    grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+                else:
+                    grads, aux = self._shard_grads(leaves, data, idx, mesh)
                 with torch.no_grad():
                     self.optimizer_step_(params, dict(zip(names, grads)), opt_state)
                 auxs.append(aux)
-        metrics = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
+        if mesh is None:
+            metrics = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
+        else:
+            # Each rank's parts are its shares of the global means: their
+            # sums over the ranks are the one-process parts.
+            stacked = mesh.all_reduce_(torch.stack([torch.stack(list(a.values()))
+                                                    for a in auxs]))
+            metrics = dict(zip(auxs[0], stacked.mean(0)))
         return params, opt_state, metrics
 
+    def _shard_grads(self, leaves, data, idx, mesh):
+        """(gradients summed over the ranks, this rank's loss parts) of the
+        global minibatch ``idx``; every rank gets the same gradients."""
+        names = list(leaves)
+        loss, aux = self._shard_loss(leaves, data, idx, mesh)
+        if loss is None:
+            grads = [torch.zeros_like(v) for v in leaves.values()]
+            aux = dict.fromkeys(("pg_loss", "vf_loss", "entropy", "approx_kl", "clip_frac"),
+                                torch.zeros((), device=idx.device))
+        else:
+            grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+        flat = mesh.all_reduce_(torch.cat([g.reshape(-1) for g in grads]))
+        return [f.view_as(g) for f, g in zip(torch.split(flat, [g.numel() for g in grads]),
+                                             grads)], aux
+
     def train_iteration(self, state: PPOState, gen: torch.Generator):
-        """One PPO update: rollout, GAE, shuffled minibatch epochs."""
+        """One PPO update: rollout, GAE, shuffled minibatch epochs; on the
+        state's mesh, data-parallel (module docstring)."""
         cfg = self.config
+        mesh = state.mesh
+        if mesh is not None and type(self) is not PPO2:
+            refuse_mesh(self, state)
         policy = lambda obs: self.apply(state.params, obs)
         vstate, obs, obs_norm, last_norm_obs, batch = collect_rollout(
             self.vec_env, policy, state.vstate, state.obs, state.obs_norm, gen,
-            cfg.n_steps, store_states=self.recompute_obs)
+            cfg.n_steps, store_states=self.recompute_obs, mesh=mesh)
         with torch.no_grad():
             _, last_value = policy(last_norm_obs)
         advantages, returns = compute_gae(batch.rewards, batch.values, batch.dones,
@@ -263,17 +327,25 @@ class PPO2(BaseRLAgent):
         data = (obs_data, flat(batch.actions), flat(batch.log_probs),
                 flat(batch.values), flat(advantages), flat(returns))
         batch_size = data[1].shape[0]
+        if mesh is not None:
+            batch_size *= mesh.dp
         perms = torch.stack([
             torch.randperm(batch_size, generator=gen, device=gen.device)
             for _ in range(cfg.noptepochs)])
         params, opt_state, metrics = self.update_epochs(
-            state.params, state.opt_state, data, perms)
-        metrics["explained_variance"] = explained_variance(data[3], data[5])
-        metrics["episode_return"] = batch.episode_return
-        metrics["episode_length"] = batch.episode_length
-        metrics["mean_reward_per_step"] = batch.rewards.mean()
+            state.params, state.opt_state, data, perms, mesh)
+        metrics["explained_variance"] = explained_variance(data[3], data[5], mesh)
+        if mesh is None:
+            metrics["episode_return"] = batch.episode_return
+            metrics["episode_length"] = batch.episode_length
+            metrics["mean_reward_per_step"] = batch.rewards.mean()
+        else:
+            metrics["episode_return"] = mesh.all_gather(batch.episode_return, 1)
+            metrics["episode_length"] = mesh.all_gather(batch.episode_length, 1)
+            metrics["mean_reward_per_step"] = mesh.mean(batch.rewards)
         new_state = PPOState(params=params, opt_state=opt_state, vstate=vstate,
-                             obs=obs, obs_norm=obs_norm, update_idx=state.update_idx + 1)
+                             obs=obs, obs_norm=obs_norm, update_idx=state.update_idx + 1,
+                             mesh=mesh)
         return new_state, metrics
 
     # ------------------------------------------------------------------

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from srl_tpu_torch import bridge
-from srl_tpu_torch.agents.base import BaseRLAgent, RecurrentActing
+from srl_tpu_torch.agents.base import BaseRLAgent, RecurrentActing, refuse_mesh
 from srl_tpu_torch.agents.common import (collect_recurrent_rollout, compute_gae,
                                          explained_variance)
 from srl_tpu_torch.agents.ppo import PPO2, PPOConfig
@@ -159,6 +159,7 @@ class RecurrentPPO2(RecurrentPolicyMixin, PPO2):
 
     def train_iteration(self, state: RecurrentPPOState, gen: torch.Generator):
         """One update: the segment, GAE, the epochs over env columns."""
+        refuse_mesh(self, state)
         cfg = self.config
         vstate, obs, done, carry, obs_norm, batch, last_value = self.rollout(state, gen)
         advantages, returns = compute_gae(batch.rewards, batch.values, batch.dones,

@@ -30,7 +30,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from srl_tpu_torch.agents.base import BaseRLAgent, PPOState
+from srl_tpu_torch.agents.base import BaseRLAgent, PPOState, refuse_mesh
 from srl_tpu_torch.agents.common import collect_rollout, compute_gae
 from srl_tpu_torch.agents.ppo import ADAM_STATE, EMPTY_STATE
 from srl_tpu_torch.bridge import Record
@@ -184,6 +184,7 @@ class TRPO(BaseRLAgent):
         return params, opt_state, metrics, diagnostics
 
     def train_iteration(self, state: PPOState, gen: torch.Generator):
+        refuse_mesh(self, state)
         cfg = self.config
         policy = lambda obs: self.apply(state.params, obs)
         vstate, obs, obs_norm, last_norm_obs, batch = collect_rollout(

@@ -11,6 +11,12 @@ supply the random numbers itself (the tests feed the ones the JAX env drew):
 ``reset(gen, n)`` and ``step(state, action, gen)`` compose the two.
 ``VecEnv(env, n)`` of a mixed-family env (``core/mixed_env.MixedEnv``) is a
 ``MixedVecEnv``.
+
+On a data-parallel mesh (``parallel/mesh.py``) a rank steps rows
+``[lo, hi)`` of the batch: ``VecEnv.step(..., mesh=mesh)`` draws every
+random number for the whole batch and keeps the rank's rows
+(``take_rows``), so the rank steps those rows of the one-process run bit for
+bit.
 """
 from __future__ import annotations
 
@@ -57,6 +63,26 @@ def state_map(fn, *states):
         else:
             out[f.name] = fn(*xs)
     return type(first)(**out)
+
+
+def take_rows(x, lo: int, hi: int):
+    """Rows ``[lo, hi)`` of the batch ``x``: a tensor, a noise dict, a
+    batched state dataclass, a ``VecEnvState``, or a mixed batch's tuple of
+    per-family ``VecEnvState``s (whose families hold consecutive rows; a
+    family keeps the rows of ``[lo, hi)`` that it holds, maybe none)."""
+    if isinstance(x, tuple):
+        out, start = [], 0
+        for vs in x:
+            n = vs.ep_return.shape[0]
+            f_lo = min(max(lo - start, 0), n)
+            out.append(take_rows(vs, f_lo, max(min(hi - start, n), f_lo)))
+            start += n
+        return tuple(out)
+    if isinstance(x, dict):
+        return {k: v[lo:hi] for k, v in x.items()}
+    if dataclasses.is_dataclass(x):
+        return state_map(lambda y: y[lo:hi], x)
+    return x[lo:hi]
 
 
 def state_where(mask: torch.Tensor, a, b):
@@ -178,21 +204,40 @@ class VecEnv:
     def step(self, vstate: VecEnvState, actions: torch.Tensor,
              gen: Optional[torch.Generator] = None,
              step_noise: Optional[dict] = None,
-             reset_noise: Optional[dict] = None) -> Tuple[VecEnvState, Transition]:
+             reset_noise: Optional[dict] = None, *, mesh=None,
+             rows: Optional[Tuple[int, int]] = None) -> Tuple[VecEnvState, Transition]:
         """One step of every env. The noise dicts, when given, replace the
-        draws from ``gen``; reset noise is drawn only when an episode ended."""
+        draws from ``gen``; reset noise is drawn only when an episode ended.
+
+        With ``mesh`` (a ``parallel.mesh.Mesh``), ``vstate`` and ``actions``
+        hold rows ``rows`` of the batch (by default the rank's
+        ``mesh.env_slice``): the noise, drawn or given, is the whole batch's,
+        and whether an episode ended anywhere is one all-reduce. A rank with
+        no rows here (a mixed batch's other family) still draws and joins
+        it, and returns (vstate, None)."""
         if step_noise is None:
             step_noise = self.env.draw_step_noise(gen, self.num_envs)
+        if mesh is not None:
+            lo, hi = mesh.env_slice(self.num_envs) if rows is None else rows
+            if lo == hi:
+                if mesh.any(actions.new_zeros(1, dtype=torch.bool)) and reset_noise is None:
+                    self.env.draw_reset_noise(gen, self.num_envs)
+                return vstate, None
+            step_noise = take_rows(step_noise, lo, hi)
         env_state, reward, done = self.env.apply_step(
             vstate.env_state, actions, step_noise)
         ep_return = vstate.ep_return + reward
         ep_length = vstate.ep_length + 1
 
         # Masked select of fresh states where done (one host sync: the reset
-        # pass is skipped on the common step where no episode ended).
-        if bool(done.any()):
+        # pass is skipped on the common step where no episode ended; on a
+        # mesh the sync is the all-reduce of the flag, so that every rank
+        # draws the reset noise on the same steps).
+        if bool(done.any()) if mesh is None else mesh.any(done):
             if reset_noise is None:
                 reset_noise = self.env.draw_reset_noise(gen, self.num_envs)
+            if mesh is not None:
+                reset_noise = take_rows(reset_noise, lo, hi)
             fresh = self.env.apply_reset(reset_noise)
             env_state = state_where(done, fresh, env_state)
 

@@ -30,16 +30,23 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from srl_tpu_torch.core.env import Transition, VecEnv
 from srl_tpu_torch.core.spaces import Box, Discrete
 
 
-def default_align(num_envs: int, n_families: int, n_devices: int = 1) -> int:
+def default_align(num_envs: int, n_families: int, n_devices: Optional[int] = None) -> int:
     """Family-slice alignment that keeps each of ``n_devices`` contiguous
     data-parallel shards inside one family: the shard size, or 1 (no
     alignment) when the batch does not split evenly or is too small for a
-    shard per family. The port has no device mesh yet, so one device."""
+    shard per family. ``n_devices`` defaults to the ranks of the default
+    process group (``parallel.distributed.initialize``), 1 without one, as
+    the reference reads ``jax.device_count()``: so an agent built after
+    ``initialize`` on a dp mesh of the whole world gives each rank's
+    ``mesh.env_slice`` one family (``MixedVecEnv.step`` steps any slice)."""
+    if n_devices is None:
+        n_devices = dist.get_world_size() if dist.is_initialized() else 1
     if n_devices <= 1 or num_envs % n_devices != 0:
         return 1
     shard = num_envs // n_devices
@@ -172,20 +179,31 @@ class MixedVecEnv(VecEnv):
         return tuple(states), torch.cat(obs, 0)
 
     def step(self, vstate, actions: torch.Tensor, gen: Optional[torch.Generator] = None,
-             step_noise: Optional[list] = None, reset_noise: Optional[list] = None):
+             step_noise: Optional[list] = None, reset_noise: Optional[list] = None, *,
+             mesh=None):
+        """One step of every family's slice. With ``mesh``, ``actions`` and
+        ``vstate`` hold the rank's rows ``mesh.env_slice(num_envs)``: each
+        family steps the rows of it that the rank holds (maybe none, while
+        it still draws for its whole slice)."""
         k = len(self.vecs)
         step_noise = step_noise or [None] * k
         reset_noise = reset_noise or [None] * k
+        lo, hi = (0, self.num_envs) if mesh is None else mesh.env_slice(self.num_envs)
         new_states, trs = [], []
         for i, vec in enumerate(self.vecs):
-            a = actions[self._offsets[i]:self._offsets[i + 1]]
+            start, end = self._offsets[i], self._offsets[i + 1]
+            f_lo = min(max(lo, start), end)
+            f_hi = max(min(hi, end), f_lo)
+            a = actions[f_lo - lo:f_hi - lo]
             table = self._table(i, actions.device)
             if table is not None:
                 a = table[a.long()]
+            rows = None if mesh is None else (f_lo - start, f_hi - start)
             st, tr = vec.step(vstate[i], a, gen, step_noise=step_noise[i],
-                              reset_noise=reset_noise[i])
+                              reset_noise=reset_noise[i], mesh=mesh, rows=rows)
             new_states.append(st)
-            trs.append(tr)
+            if tr is not None:
+                trs.append(tr)
         merged = Transition(**{f.name: torch.cat([getattr(tr, f.name) for tr in trs], 0)
                                for f in dataclasses.fields(Transition)})
         return tuple(new_states), merged

@@ -32,13 +32,18 @@ class RunningNorm:
         return cls(mean=torch.zeros(shape, **f32), var=torch.ones(shape, **f32),
                    count=torch.tensor(1e-4, **f32))
 
-    def update(self, batch: torch.Tensor) -> "RunningNorm":
-        """Chan et al. parallel update from a [B, ...] batch."""
+    def update(self, batch: torch.Tensor, mesh=None) -> "RunningNorm":
+        """Chan et al. parallel update from a [B, ...] batch; with ``mesh``
+        (a ``parallel.mesh.Mesh``), from the batch of every rank, its count,
+        mean and squared deviations all-reduced."""
         batch = batch.to(torch.float32)
-        batch_mean = batch.mean(0)
-        batch_var = batch.var(0, unbiased=False)
-        batch_count = torch.tensor(float(batch.shape[0]), dtype=torch.float32,
-                                   device=batch.device)
+        if mesh is None:
+            batch_mean = batch.mean(0)
+            batch_var = batch.var(0, unbiased=False)
+            batch_count = torch.tensor(float(batch.shape[0]), dtype=torch.float32,
+                                       device=batch.device)
+        else:
+            batch_mean, batch_var, batch_count = mesh.moments(batch)
         delta = batch_mean - self.mean
         tot = self.count + batch_count
         new_mean = self.mean + delta * batch_count / tot

@@ -1,22 +1,35 @@
 """Policy distributions (counterpart of srl_tpu/models/distributions.py).
 
-``sample`` draws from an explicit ``torch.Generator``.
+``sample`` draws from an explicit ``torch.Generator``. ``sample(gen,
+rows=(lo, n))`` draws for a batch of ``n`` rows and keeps rows ``lo`` on
+(as many as the distribution has): a rank of a data-parallel mesh samples
+its rows of the one-process draw.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+
+def _draw(fn, shape, gen, rows: Optional[Tuple[int, int]], **kwargs) -> torch.Tensor:
+    """``fn(shape)`` from ``gen``; with ``rows = (lo, n)``, rows ``lo`` to
+    ``lo + shape[0]`` of ``fn((n,) + shape[1:])``."""
+    if rows is None:
+        return fn(shape, generator=gen, **kwargs)
+    lo, n = rows
+    return fn((n,) + tuple(shape[1:]), generator=gen, **kwargs)[lo:lo + shape[0]]
 
 
 class Categorical:
     def __init__(self, logits: torch.Tensor):
         self.logits = logits  # [..., n]
 
-    def sample(self, gen: torch.Generator) -> torch.Tensor:
+    def sample(self, gen: torch.Generator, rows=None) -> torch.Tensor:
         """Gumbel-max draw: argmax(logits - log(-log(u)))."""
-        u = torch.rand(self.logits.shape, generator=gen, device=self.logits.device)
+        u = _draw(torch.rand, self.logits.shape, gen, rows, device=self.logits.device)
         u = u.clamp_min(torch.finfo(torch.float32).tiny)
         return torch.argmax(self.logits - torch.log(-torch.log(u)), -1)
 
@@ -40,9 +53,9 @@ class DiagGaussian:
         self.mean = mean  # [..., d]
         self.log_std = log_std  # broadcastable to mean
 
-    def sample(self, gen: torch.Generator) -> torch.Tensor:
-        noise = torch.randn(self.mean.shape, generator=gen, device=self.mean.device,
-                            dtype=self.mean.dtype)
+    def sample(self, gen: torch.Generator, rows=None) -> torch.Tensor:
+        noise = _draw(torch.randn, self.mean.shape, gen, rows, device=self.mean.device,
+                      dtype=self.mean.dtype)
         return self.mean + torch.exp(self.log_std) * noise
 
     def log_prob(self, actions: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,202 @@
+"""Data-parallel PPO2 over the ranks of a ``torch.distributed`` world.
+
+    torchrun --nproc-per-node 4 -m srl_tpu_torch.parallel.dp_ppo \\
+        --env KukaButtonGymEnv-v0 --render-scale 2 --coarse-obs --num-envs 1024 --updates 20
+
+Every process joins the world (``distributed.initialize``: NCCL on cards;
+gloo with ``--device cpu``, or ``--backend gloo`` for card tensors through
+host memory), lays PPO2's state for the global batch of ``--num-envs`` out
+on the dp mesh of every rank (``shard_ppo_state``) and trains ``--updates``
+updates. Started alone (no ``MASTER_ADDR``), it trains the same batch in one
+process. Flags it does not know build the env as the training CLI's do
+(``--env``, ``--srl-model``, ``--mixed-envs``, ``--render-scale``,
+``--coarse-obs``, ...).
+
+Each rank prints one line ``DP_PPO {json}``: the update's pg_loss, the
+parameters' sum of squares, env-steps/s of the global batch and of the
+rank's rows, the seconds of the mesh's collectives per update, the render
+kernels' launches while training and the card's peak memory. With
+``--fingerprint-steps K`` it first steps a fresh env batch K times with the
+actions ``(global env index + step) % n_actions`` and keeps each step's
+rewards, dones and a fingerprint of each env's observation (a frame's
+bytes weighted by their position, summed exactly in float64); ``--out DIR``
+saves those and the final parameters to ``DIR/rank{r}.pt``.
+"""
+from __future__ import annotations
+
+import argparse
+import datetime
+import json
+import os
+import time
+from typing import Optional
+
+import torch
+
+from srl_tpu_torch.agents.ppo import PPO2, PPOConfig
+from srl_tpu_torch.core.device import resolve_device
+from srl_tpu_torch.core.env import take_rows
+from srl_tpu_torch.experiments import train as train_cli
+from srl_tpu_torch.ops import render2d, render3d
+from srl_tpu_torch.parallel import distributed, shard_ppo_state
+
+KERNELS = {"render2d": render2d, "render3d": render3d}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="Data-parallel PPO2 over the ranks of a torch.distributed world",
+        epilog="Other flags build the env as the training CLI's do.")
+    p.add_argument("--num-envs", type=int, default=256, help="the global env batch")
+    p.add_argument("--updates", type=int, default=2)
+    p.add_argument("--n-steps", type=int, default=PPOConfig.n_steps)
+    p.add_argument("--nminibatches", type=int, default=PPOConfig.nminibatches)
+    p.add_argument("--noptepochs", type=int, default=PPOConfig.noptepochs)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                   help="default: nccl on cuda, gloo on cpu")
+    p.add_argument("--timeout", type=float, default=300.0,
+                   help="seconds the rendezvous and each collective may wait")
+    p.add_argument("--fingerprint-steps", type=int, default=0,
+                   help="first step a fresh batch this many times with fixed actions "
+                        "(discrete action spaces)")
+    p.add_argument("--out", default=None, help="directory for rank{r}.pt")
+    p.add_argument("--start-after", default=None, metavar="FILE",
+                   help="once in the world, wait for FILE to exist before the job (a "
+                        "launcher that starts the processes early gives the signal)")
+    return p
+
+
+def make_agent(args, env_argv, device) -> PPO2:
+    env = train_cli.build_env(train_cli.parse_args(env_argv), device)
+    return PPO2(env=env, num_envs=args.num_envs, device=device, config=PPOConfig(
+        n_steps=args.n_steps, nminibatches=args.nminibatches, noptepochs=args.noptepochs))
+
+
+def _fingerprint(obs: torch.Tensor) -> torch.Tensor:
+    """[n] exact float64 fingerprints of uint8 frames, else the observations
+    themselves as float64 [n, d]."""
+    flat = obs.reshape(obs.shape[0], -1)
+    if obs.dtype != torch.uint8:
+        return flat.double()
+    weights = torch.arange(flat.shape[1], device=obs.device, dtype=torch.float64) % 251 + 1
+    return (flat.double() * weights).sum(1)
+
+
+@torch.no_grad()
+def env_fingerprints(agent: PPO2, mesh, seed: int, steps: int) -> dict:
+    """Rewards, dones and observation fingerprints of ``steps`` steps of a
+    fresh batch with fixed actions: this rank's rows of the one-process
+    run's, bit for bit."""
+    vec = agent.vec_env
+    gen = torch.Generator(device=agent.device).manual_seed(seed)
+    vstate, obs = vec.reset(gen)
+    lo, hi = (0, vec.num_envs) if mesh is None else mesh.env_slice(vec.num_envs)
+    vstate, obs = take_rows(vstate, lo, hi), obs[lo:hi]
+    n_actions = agent.env.action_space.n
+    out = {"reward": [], "done": [], "obs": [_fingerprint(obs)]}
+    for i in range(steps):
+        actions = (torch.arange(vec.num_envs, device=agent.device) + i) % n_actions
+        vstate, tr = vec.step(vstate, actions[lo:hi], gen, mesh=mesh)
+        out["reward"].append(tr.reward)
+        out["done"].append(tr.done)
+        out["obs"].append(_fingerprint(tr.obs))
+    return {k: torch.stack(v).cpu() for k, v in out.items()}
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def train(agent: PPO2, mesh, seed: int, updates: int) -> dict:
+    """``updates`` PPO2 updates from seed ``seed``, data-parallel on
+    ``mesh`` (or in one process): per-update pg_loss, seconds and collective
+    seconds, the final flat parameters and the kernels' launches while
+    training (the counts set to 0 after the initial reset)."""
+    agent.n_updates = updates
+    gen = torch.Generator(device=agent.device).manual_seed(seed)
+    for module in KERNELS.values():
+        module.launches = 0
+    state = agent.init_state(gen, seed)
+    init_launches = {k: m.launches for k, m in KERNELS.items()}
+    params0 = torch.cat([v.reshape(-1) for v in state.params.values()]).cpu()
+    if mesh is not None:
+        state = shard_ppo_state(state, mesh)
+    for module in KERNELS.values():
+        module.launches = 0
+    pg_loss, seconds, collective_s = [], [], []
+    for _ in range(updates):
+        _sync(agent.device)
+        t0, c0 = time.perf_counter(), 0.0 if mesh is None else mesh.seconds
+        state, metrics = agent.train_iteration(state, gen)
+        pg_loss.append(float(metrics["pg_loss"]))
+        _sync(agent.device)
+        seconds.append(time.perf_counter() - t0)
+        collective_s.append(0.0 if mesh is None else mesh.seconds - c0)
+    params = torch.cat([v.reshape(-1) for v in state.params.values()]).cpu()
+    return {"pg_loss": pg_loss, "seconds": seconds, "collective_s": collective_s,
+            "params0": params0, "params": params,
+            "param_sq": float(params.double().square().sum()),
+            "rows": int(state.obs.shape[0]), "init_launches": init_launches,
+            "launches": {k: m.launches for k, m in KERNELS.items()},
+            "mean_reward_per_step": float(metrics["mean_reward_per_step"])}
+
+
+def run(args, env_argv, mesh=None) -> dict:
+    """The whole job on this rank (``mesh`` None: one process)."""
+    device = resolve_device(args.device)
+    agent = make_agent(args, env_argv, device)
+    result = {"rank": 0 if mesh is None else mesh.rank, "dp": 1 if mesh is None else mesh.dp,
+              "backend": None if mesh is None else mesh.backend,
+              "family_counts": getattr(agent.vec_env, "counts", None)}
+    if args.fingerprint_steps:
+        result["fingerprints"] = env_fingerprints(agent, mesh, args.seed, args.fingerprint_steps)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    result.update(train(agent, mesh, args.seed, args.updates))
+    steps = args.n_steps * args.num_envs
+    result["env_steps_per_s"] = steps * len(result["seconds"]) / sum(result["seconds"])
+    result["rank_env_steps_per_s"] = result["env_steps_per_s"] * result["rows"] / args.num_envs
+    result["peak_mem_gb"] = (torch.cuda.max_memory_allocated(device) / 2**30
+                             if device.type == "cuda" else None)
+    return result
+
+
+def summary(result: dict) -> dict:
+    """The printable part of a result."""
+    return {k: v for k, v in result.items() if k not in ("params0", "params", "fingerprints")}
+
+
+def _wait_for(path: str, seconds: float) -> None:
+    deadline = time.monotonic() + seconds
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} did not appear in {seconds} s")
+        time.sleep(0.05)
+
+
+def main(argv: Optional[list] = None) -> dict:
+    args, env_argv = build_parser().parse_known_args(argv)
+    joined = distributed.initialize(device=args.device, backend=args.backend,
+                                    timeout=datetime.timedelta(seconds=args.timeout))
+    try:
+        mesh = distributed.make_global_mesh() if joined else None
+        if mesh is not None:
+            distributed.warmup_collectives(mesh)
+        if args.start_after:
+            _wait_for(args.start_after, args.timeout)
+        result = run(args, env_argv, mesh)
+        if args.out is not None:
+            os.makedirs(args.out, exist_ok=True)
+            torch.save(result, os.path.join(args.out, f"rank{result['rank']}.pt"))
+        print("DP_PPO " + json.dumps(summary(result)), flush=True)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+    return result
+
+
+if __name__ == "__main__":
+    main()

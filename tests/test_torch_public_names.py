@@ -6,9 +6,17 @@ classes, and each class's public methods (functions, static and class
 methods, properties), and checks that the port's module of the same name
 has them. What the port leaves out on purpose is listed below with the
 reason; a listed name that the port has after all fails the test too, so
-the lists shrink as the port grows. ``srl_tpu.parallel`` is listed as the
-next slice (A12) only while the port has no ``parallel`` package: once it
-lands, its names are held like every other.
+the lists shrink as the port grows.
+
+``srl_tpu.parallel`` (A12) is held like every other module. The port has
+all of its names; what it leaves out is a behaviour, not a name: ``tp > 1``.
+The reference lays each weight's output features over ``tp`` devices, which
+changes where the weights live and not what is computed; the port targets
+one card, so ``shard_params`` and ``shard_ppo_state`` refuse ``tp > 1`` and
+say why (tests/test_torch_parallel.py). The reference's
+``test_eight_devices_available`` and ``test_graft_dryrun_multichip``
+(tests/test_sharding.py) check its TPU harness (eight virtual XLA devices,
+``__graft_entry__.py``) and have no counterpart in the port.
 """
 import argparse
 import importlib
@@ -29,7 +37,6 @@ MODULES_LEFT_OUT = {
     "srl_tpu.ops.pallas_render": "kernel B2: csrc/render2d.cu behind ops/render2d.py",
     "srl_tpu.ops.pallas_render3d": "kernel B1: csrc/render3d.cu behind ops/render3d.py",
 }
-PARALLEL = {"srl_tpu.parallel", "srl_tpu.parallel.mesh", "srl_tpu.parallel.distributed"}
 
 
 def has_module(name: str) -> bool:
@@ -37,10 +44,6 @@ def has_module(name: str) -> bool:
         return importlib.util.find_spec(name) is not None
     except ModuleNotFoundError:  # its package is missing
         return False
-
-
-if not has_module("srl_tpu_torch.parallel"):
-    MODULES_LEFT_OUT.update(dict.fromkeys(PARALLEL, "A12, next slice"))
 
 # Module-level names the port leaves out: (module, name) -> reason.
 NAMES_LEFT_OUT = {
