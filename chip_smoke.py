@@ -163,7 +163,21 @@ Phases, each reported on its own lines; any failure exits non-zero:
    launches no kernel; the same checks. Each prints
    the global and per-rank env-steps/s, the collectives' seconds an update,
    each rank's launches and peak memory. The child processes run under a
-   hard timeout and are killed on failure.
+   hard timeout and are killed on failure;
+14. tensor parallelism (``dp_ppo --tp 2``): each rank holds its half of
+   every weight's output features and of Adam's moments and gathers the
+   whole weights over its tp group before a forward. 14a, dp1 x tp2: two
+   gloo processes on the card each step all 256 MobileRobot 224x224 envs
+   of 13b's run (2 updates, 260 fingerprinted steps, equal bit for bit to
+   13b's one process, whose run is reused); each rank runs the one-process
+   shapes, so it is held to the one-update bar against that run, both
+   ranks' gathered parameters are equal, and render2d launches 2 x 128
+   times on each rank at N=256. 14b, dp2 x tp2: 13c's mixed pod over four
+   processes, ranks 0 and 1 the Kuka rows, 2 and 3 the Omnirobot rows
+   (render3d 128, 128, 0 and 0 launches), held to 13c's bars against 13c's
+   one process and to the one-update bar against 13c's dp2 x tp1 ranks. Each
+   prints each rank's ``state_mb`` (its parameters and Adam moments) beside
+   the one process's, and the tp group's collectives' seconds apart.
 
 The line before the last is a JSON object with each kernel's numbers, the
 last ``{"ok": true, "device": {...}}``. Needs the card and the rest of the
@@ -1654,7 +1668,7 @@ DP_MOBILE_ARGS = ["--env", "MobileRobotGymEnv-v0", "--srl-model", "raw_pixels",
 DP_MIXED_ARGS = ["--env", "KukaButtonGymEnv-v0", "--mixed-envs", "KukaButtonGymEnv-v0",
                  "OmnirobotEnv-v0", "--srl-model", "raw_pixels", "--render-scale", "2",
                  "--num-envs", "256", "--updates", "1", "--fingerprint-steps", "64"]
-DP_CHILD_TIMEOUT = 240.0  # seconds both ranks of 13b or 13c may take
+DP_CHILD_TIMEOUT = 240.0  # seconds the ranks of 13b, 13c, 14a or 14b may take
 # The reference's bar for a dp update against one process
 # (tests/test_sharding.py:68-93): pg_loss rtol 1e-4 (atol 1e-5), parameters
 # rtol 1e-3 (atol 1e-5). 13a's one rank runs the policy over the batch one
@@ -1705,9 +1719,15 @@ def dp_rates(results: list, card: str) -> str:
     rates = ", ".join(f"rank {r['rank']} {r['rank_env_steps_per_s']:.0f}" for r in results)
     coll = "; ".join(f"rank {r['rank']} " + "/".join(f"{c:.3f}" for c in r["collective_s"])
                      for r in results)
+    line = (f"{results[0]['env_steps_per_s']:.0f} env-steps/s global ({rates}); collectives "
+            f"s an update: {coll}")
+    if results[0]["tp"] > 1:
+        line += "; of the tp groups (weight gathers, norm sums): " + "; ".join(
+            f"rank {r['rank']} " + "/".join(f"{c:.3f}" for c in r["tp_collective_s"])
+            for r in results)
     mem = ", ".join(f"rank {r['rank']} {r['peak_mem_gb']:.2f} GB" for r in results)
-    return (f"{results[0]['env_steps_per_s']:.0f} env-steps/s global ({rates}); collectives "
-            f"s an update: {coll}; peak memory {mem}; {card}")
+    state = ", ".join(f"rank {r['rank']} {r['state_mb']:.2f}" for r in results)
+    return f"{line}; peak memory {mem}; state_mb {state}; {card}"
 
 
 def nccl_one_rank(torch, card: str) -> dict:
@@ -1750,32 +1770,38 @@ def nccl_one_rank(torch, card: str) -> dict:
     return meshed
 
 
-def gloo_pair(torch, argv: list, what: str, card: str, kernel: str, expected: list) -> list:
-    """Steps 13b and 13c: ``dp_ppo`` in two processes on the one card, joined
-    by gloo over 127.0.0.1, against one process stepping the whole batch.
-    The processes start first and wait, once in their world, for the
-    one-process run to end; they are killed on failure. ``expected`` is each
-    rank's launches of ``kernel`` while training. Returns the ranks'
-    results."""
+def gloo_ranks(torch, argv: list, what: str, card: str, kernel: str, expected: list,
+               one: dict = None) -> tuple:
+    """Steps 13b, 13c and 14: ``dp_ppo`` in ``len(expected)`` processes on
+    the one card, joined by gloo over 127.0.0.1, ``--tp`` of them to a tp
+    group, against one process stepping the whole batch: ``one``, that
+    run's result when a step made it already (same arguments and seed),
+    else it runs while the processes start, which wait, once in their
+    world, for it to end. The processes are killed on failure.
+    ``expected`` is each rank's launches of ``kernel`` while training.
+    Returns (the one-process result, the ranks' results)."""
     from srl_tpu_torch.parallel import dp_ppo
 
     t0 = time.perf_counter()
     args, env_argv = dp_ppo.build_parser().parse_known_args(argv)
+    n, tp = len(expected), args.tp
+    dp = n // tp
     with tempfile.TemporaryDirectory() as out:
         gate = os.path.join(out, "start")
         env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
-                   WORLD_SIZE="2", GLOO_SOCKET_IFNAME="lo")
+                   WORLD_SIZE=str(n), GLOO_SOCKET_IFNAME="lo")
         cmd = [sys.executable, "-m", "srl_tpu_torch.parallel.dp_ppo", *argv, "--backend",
                "gloo", "--timeout", str(int(DP_CHILD_TIMEOUT)), "--out", out,
                "--start-after", gate]
         procs = []
         try:
-            for rank in range(2):
+            for rank in range(n):
                 procs.append(subprocess.Popen(cmd, cwd=REPO, env={**env, "RANK": str(rank)},
                                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                               text=True))
-            one = dp_ppo.run(args, env_argv)
-            torch.cuda.empty_cache()
+            if one is None:
+                one = dp_ppo.run(args, env_argv)
+                torch.cuda.empty_cache()
             t_ranks = time.perf_counter()
             open(gate, "w").close()
             deadline = time.monotonic() + DP_CHILD_TIMEOUT
@@ -1791,33 +1817,41 @@ def gloo_pair(torch, argv: list, what: str, card: str, kernel: str, expected: li
             if p.returncode != 0:
                 raise AssertionError(f"{what}: a rank exited {p.returncode}:\n{stdout[-3000:]}"
                                      f"\n{stderr[-3000:]}")
-        ranks = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(2)]
-    rows = args.num_envs // 2
-    if [(r["rank"], r["dp"], r["rows"], r["backend"]) for r in ranks] != [
-            (0, 2, rows, "gloo"), (1, 2, rows, "gloo")]:
-        raise AssertionError(f"{what}: ranks {[(r['rank'], r['rows']) for r in ranks]}")
-    if ranks[0]["pg_loss"] != ranks[1]["pg_loss"] or not torch.equal(ranks[0]["params"],
-                                                                      ranks[1]["params"]):
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(n)]
+    rows = args.num_envs // dp
+    got = [(r["rank"], r["dp"], r["tp"], r["rows"], r["backend"]) for r in ranks]
+    if got != [(r, dp, tp, rows, "gloo") for r in range(n)]:
+        raise AssertionError(f"{what}: ranks {got}")
+    if any(r["pg_loss"] != ranks[0]["pg_loss"] or not torch.equal(r["params"], ranks[0]["params"])
+           for r in ranks):
         raise AssertionError(f"{what}: the ranks disagree on pg_loss or the parameters")
     for name, want in one["fingerprints"].items():
-        got = torch.cat([r["fingerprints"][name] for r in ranks], 1)
+        # The ranks of a tp group step the same rows.
+        if not all(torch.equal(r["fingerprints"][name], ranks[r["rank"] - r["rank"] % tp]
+                               ["fingerprints"][name]) for r in ranks):
+            raise AssertionError(f"{what}: the ranks of a tp group differ in their {name}")
+        got = torch.cat([r["fingerprints"][name] for r in ranks[::tp]], 1)
         if not torch.equal(got, want):
             raise AssertionError(f"{what}: the ranks' {name} differ from one process's")
     steps, resets = one["fingerprints"]["done"].shape[0], int(one["fingerprints"]["done"].sum())
-    diff = hold_dp(torch, ranks[0], one, what, own_rows=True)
+    diff = hold_dp(torch, ranks[0], one, what, own_rows=dp > 1)
     launches = [r["launches"][kernel] for r in ranks]
     if launches != expected:
         raise AssertionError(f"{what}: {kernel} launched {launches} times, not {expected}")
+    if tp > 1 and not all(r["state_mb"] < 0.51 * one["state_mb"] for r in ranks):
+        raise AssertionError(f"{what}: a rank holds {[r['state_mb'] for r in ranks]} MB of "
+                             f"parameters and Adam moments, one process {one['state_mb']}")
     log(f"[dp] {what}: rewards, dones and frame fingerprints of {steps} steps ({resets} "
         f"auto-resets) equal one process stepping all {args.num_envs} envs bit for bit; "
         f"{diff}; {kernel} {launches} launches while training (N={rows} a rank; the reset "
         f"before, {[r['init_launches'][kernel] for r in ranks]}, at the global batch); "
         f"families {ranks[0]['family_counts']}; one process {one['env_steps_per_s']:.0f} "
-        f"env-steps/s; the ranks' collectives are gloo's allreduce and allgather on card "
-        f"tensors, which gloo stages through host memory itself; " + dp_rates(ranks, card)
-        + f"; the ranks ran {ranks_s:.1f} s after the one-process run, {what} "
+        f"env-steps/s, state_mb {one['state_mb']:.2f}; the ranks' collectives are gloo's "
+        f"allreduce and allgather on card tensors, which gloo stages through host memory "
+        f"itself; " + dp_rates(ranks, card)
+        + f"; the ranks ran {ranks_s:.1f} s after the gate, {what} "
         f"{time.perf_counter() - t0:.1f} s")
-    return ranks
+    return one, ranks
 
 
 def main() -> int:
@@ -1980,11 +2014,27 @@ def main() -> int:
     # 13. The data-parallel layer.
     torch.cuda.empty_cache()
     dp_kuka = nccl_one_rank(torch, card)
-    dp_mobile = gloo_pair(torch, DP_MOBILE_ARGS, "13b MobileRobot 224x224 pixels, 2 gloo ranks",
-                          card, "render2d", [256, 256])
-    dp_mixed = gloo_pair(torch, DP_MIXED_ARGS, "13c mixed Kuka + Omnirobot pixels, 2 gloo ranks",
-                         card, "render3d", [128, 0])
+    mobile_one, dp_mobile = gloo_ranks(
+        torch, DP_MOBILE_ARGS, "13b MobileRobot 224x224 pixels, 2 gloo ranks", card,
+        "render2d", [256, 256])
+    mixed_one, dp_mixed = gloo_ranks(
+        torch, DP_MIXED_ARGS, "13c mixed Kuka + Omnirobot pixels, 2 gloo ranks", card,
+        "render3d", [128, 0])
     log(f"[dp] step 13 took {time.perf_counter() - t_step13:.1f} s")
+    t_step14 = time.perf_counter()
+
+    # 14. Tensor parallelism: each rank holds its 1/tp of the weights.
+    torch.cuda.empty_cache()
+    _, tp_mobile = gloo_ranks(
+        torch, DP_MOBILE_ARGS + ["--tp", "2"], "14a MobileRobot 224x224 pixels, dp1 x tp2",
+        card, "render2d", [256, 256], one=mobile_one)
+    _, tp_mixed = gloo_ranks(
+        torch, DP_MIXED_ARGS + ["--tp", "2"], "14b mixed Kuka + Omnirobot pixels, dp2 x tp2",
+        card, "render3d", [128, 128, 0, 0], one=mixed_one)
+    diff = hold_dp(torch, tp_mixed[0], dp_mixed[0], "14b against 13c's dp2 x tp1 ranks",
+                   own_rows=False)
+    log(f"[tp] 14b against 13c's dp2 x tp1 ranks (the same rows a rank, the weights "
+        f"whole there): {diff}; step 14 took {time.perf_counter() - t_step14:.1f} s")
     kept.cleanup()
     log(f"[done] {time.perf_counter() - t_start:.1f} s after start-up")
 
@@ -2003,6 +2053,7 @@ def main() -> int:
         "enjoy_launches": enjoy_launches["11a"],
         "dp_nccl_launches": dp_kuka["init_launches"]["render3d"] + dp_kuka["launches"]["render3d"],
         "dp_mixed_rank0_launches": dp_mixed[0]["launches"]["render3d"],
+        "tp_mixed_rank0_launches": tp_mixed[0]["launches"]["render3d"],
         "max_abs_err": max(r3_err, mb["max_abs_err"]),
         "ms": r3_ms,
         "plain_ms": r3_plain_ms,
@@ -2022,6 +2073,7 @@ def main() -> int:
         "enjoy_launches": enjoy_launches["11b"],
         "srl_server_launches": srl_server_launches,
         "dp_rank0_launches": dp_mobile[0]["launches"]["render2d"],
+        "tp_rank0_launches": tp_mobile[0]["launches"]["render2d"],
         "max_abs_err": r2_err,
         "ms": r2_ms,
         "plain_ms": r2_plain_ms,

@@ -26,6 +26,7 @@ from srl_tpu_torch.core.env import VecEnv, VecEnvState
 from srl_tpu_torch.core.normalize import RunningNorm
 from srl_tpu_torch.core.spaces import Discrete
 from srl_tpu_torch.models.policies import ActorCritic, make_policy
+from srl_tpu_torch.parallel.mesh import gather_params
 
 
 def as_tensor_on(x, device) -> torch.Tensor:
@@ -48,8 +49,9 @@ class PPOState:
     obs: Optional[torch.Tensor]
     obs_norm: Optional[RunningNorm]
     update_idx: int = 0
-    # The data-parallel mesh the state is laid out on
-    # (``parallel.shard_ppo_state``: PPO2 only), else None.
+    # The dp x tp mesh the state is laid out on (``parallel.shard_ppo_state``:
+    # PPO2 only), else None. With tp > 1, ``params`` and Adam's ``mu`` and
+    # ``nu`` hold the rank's shards (``BaseRLAgent.whole_state``).
     mesh: Optional[object] = None
 
 
@@ -100,6 +102,28 @@ class BaseRLAgent:
     def apply(self, params: Dict[str, torch.Tensor], obs: torch.Tensor):
         """(distribution, value) of the policy with ``params``."""
         return functional_call(self.policy, params, (obs,))
+
+    def param_shapes(self) -> Dict[str, tuple]:
+        """Each parameter's whole shape."""
+        return {k: tuple(v.shape) for k, v in self.policy.state_dict().items()}
+
+    def whole_params(self, params: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+        """``params`` whole: on a mesh with tp > 1, gathered over the rank's
+        tp group (a collective: every rank of the group calls it)."""
+        if mesh is None:
+            return params
+        return gather_params(params, mesh, self.param_shapes())
+
+    def whole_state(self, s):
+        """``s`` with its parameters and Adam's moments whole (gathered over
+        the tp group where ``s`` is laid out on a mesh with tp > 1)."""
+        mesh = getattr(s, "mesh", None)
+        if mesh is None or mesh.tp == 1:
+            return s
+        opt = s.opt_state
+        return dataclasses.replace(s, params=self.whole_params(s.params, mesh), opt_state={
+            **opt, "mu": self.whole_params(opt["mu"], mesh),
+            "nu": self.whole_params(opt["nu"], mesh)})
 
     def init_params(self, seed: int) -> Dict[str, torch.Tensor]:
         """Fresh orthogonal-init parameters drawn from ``seed``."""
@@ -202,7 +226,8 @@ class BaseRLAgent:
         obs = as_tensor_on(observation, self.device)
         if self.state.obs_norm is not None:
             obs = self.state.obs_norm.normalize(obs)
-        dist, _ = self.apply(self.state.params, obs)
+        params = self.whole_params(self.state.params, getattr(self.state, "mesh", None))
+        dist, _ = self.apply(params, obs)
         return dist
 
     @torch.no_grad()
@@ -268,7 +293,8 @@ class BaseRLAgent:
             "num_envs": self.num_envs,
             "policy_kind": self.policy_kind,
             "normalize_obs": self.normalize_obs,
-            "params": self._flax(self.state.params),
+            "params": self._flax(self.whole_params(self.state.params,
+                                                   getattr(self.state, "mesh", None))),
             "obs_norm": (self._to_numpy({"mean": norm.mean, "var": norm.var,
                                          "count": norm.count})
                          if norm is not None else None),
@@ -316,7 +342,9 @@ class BaseRLAgent:
                 bridge.flax_to_state_dict(tree, self.policy.torso_kind).items()}
 
     def state_to_reference(self, s) -> "bridge.Record":
-        """The training state ``s`` as the reference's ``PPOState``."""
+        """The training state ``s`` as the reference's ``PPOState``, its
+        parameters and optimizer whole."""
+        s = self.whole_state(s)
         return bridge.Record("srl_tpu.agents.ppo.PPOState", {
             "params": self._flax(s.params),
             "opt_state": self.opt_state_to_reference(s.opt_state),

@@ -52,7 +52,7 @@ def collect_rollout(
     With ``mesh`` (a ``parallel.mesh.Mesh``), ``vstate`` and ``obs`` hold
     the rank's rows of the env batch: actions and env noise are drawn for the
     whole batch and the rank keeps its rows, and the normalizer updates from
-    every rank's observations.
+    the observations of every rank of the dp group.
 
     ``store_states=True`` records each step's pre-step ``vstate.env_state``
     instead of its observation (``env.observe(env_state_t)`` is obs_t), for
@@ -152,7 +152,7 @@ def compute_gae(rewards, values, dones, last_value, gamma: float, lam: float):
 
 def explained_variance(y_pred: torch.Tensor, y_true: torch.Tensor, mesh=None) -> torch.Tensor:
     """1 - var(y_true - y_pred) / var(y_true), NaN where var(y_true) is 0;
-    with ``mesh``, over the flat batches of every rank."""
+    with ``mesh``, over the flat batches of every rank of the dp group."""
     if mesh is None:
         var = lambda x: torch.var(x, unbiased=False)
     else:

@@ -43,6 +43,17 @@ rows divided by the global minibatch size, its advantages normalized with
 the global mean and std (two all-reduces); the gradients are all-reduced
 with SUM before the clip and Adam, so every rank takes the same step. The
 metrics are reduced, the episode statistics gathered.
+
+Tensor-parallel (a ``dp x tp`` mesh, ``tp > 1``): the state holds the rank's
+tp shards of the parameters and of Adam's moments (``parallel.mesh.
+shard_params``), and the ranks of a tp group hold the same env rows. The
+rollout acts on the whole parameters gathered once over the tp group; each
+minibatch gathers them again (Adam changed them), takes the full gradient
+of the rank's rows, keeps its shard's slice and all-reduces that over the dp
+group only. The global norm of the clip sums the sharded leaves' squares
+over the tp group and adds the replicated leaves' once; Adam steps the
+shards. What is computed is the dp run's, bit for bit: the clip sums its
+squares in float64, so the tp partial sums round as whole leaves do.
 """
 from __future__ import annotations
 
@@ -60,6 +71,7 @@ from srl_tpu_torch.core.device import resolve_device
 from srl_tpu_torch.core.env import state_map
 from srl_tpu_torch.core.frame_stack import FrameStack
 from srl_tpu_torch.core.optim import adam_init, adam_update_
+from srl_tpu_torch.parallel.mesh import shard_params, tp_sharded
 
 EMPTY_STATE = "optax._src.base.EmptyState"
 ADAM_STATE = "optax._src.transform.ScaleByAdamState"
@@ -82,11 +94,27 @@ class PPOConfig:
     adam_eps: float = 1e-5
 
 
-def clip_by_global_norm_(grads: Dict[str, torch.Tensor], max_norm: float):
+def clip_by_global_norm_(grads: Dict[str, torch.Tensor], max_norm: float, mesh=None,
+                         sharded=()):
     """optax.clip_by_global_norm, in place: unchanged below ``max_norm``,
     else scaled to norm ``max_norm`` (as ``g * (max_norm / ||g||)``, within
-    1 ulp of optax's ``g / ||g|| * max_norm``)."""
-    g_norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads.values()))
+    1 ulp of optax's ``g / ||g|| * max_norm``). The squares are summed in
+    float64 and the sum rounded to float32 before the square root, so the
+    order of the partial sums (whole leaves, or a tp group's shards of them)
+    does not show in the norm: a float32 sum's last bits move the clip's
+    scale, which an update amplifies (tensor parallelism in PERF.md). On a
+    mesh with ``tp > 1``, ``grads`` holds the rank's shards of the leaves
+    named in ``sharded`` (their squares are summed over the tp group) and
+    the whole of the rest (their squares added once)."""
+    zero = torch.zeros((), dtype=torch.float64, device=next(iter(grads.values())).device)
+    square_sum = lambda gs: sum((torch.sum(torch.square(g.double())) for g in gs), zero)
+    if mesh is None or mesh.tp == 1:
+        sq = square_sum(grads.values())
+    else:
+        sq = mesh.tp_all_reduce_(
+            square_sum(g for k, g in grads.items() if k in sharded).reshape(1))[0]
+        sq = sq + square_sum(g for k, g in grads.items() if k not in sharded)
+    g_norm = torch.sqrt(sq.to(torch.float32))
     scale = torch.where(g_norm < max_norm, 1.0, max_norm / g_norm)
     for g in grads.values():
         g.mul_(scale)
@@ -154,12 +182,15 @@ class PPO2(BaseRLAgent):
         frac = 1.0 - update / max(self.n_updates, 1)
         return cfg.learning_rate * max(frac, 0.0)
 
-    def optimizer_step_(self, params, grads, opt_state):
+    def optimizer_step_(self, params, grads, opt_state, mesh=None):
         """Global-norm clip, then Adam at the annealed lr (optax's chain), in
         place on ``params`` and ``opt_state``; ``grads`` is consumed. (The
-        fc512 weight alone is 19M floats.)"""
+        fc512 weight alone is 19M floats.) On a tp mesh all three hold the
+        rank's shards."""
         cfg = self.config
-        clip_by_global_norm_(grads, cfg.max_grad_norm)
+        sharded = () if mesh is None else {k for k, shape in self.param_shapes().items()
+                                           if tp_sharded(shape, mesh.tp)}
+        clip_by_global_norm_(grads, cfg.max_grad_norm, mesh, sharded)
         adam_update_(params, grads, opt_state, self.learning_rate(opt_state["count"]),
                      cfg.adam_eps)
 
@@ -261,7 +292,8 @@ class PPO2(BaseRLAgent):
         (params', opt_state', metrics averaged over every minibatch); the
         inputs are left as they are. With ``mesh``, ``data`` holds the
         rank's env columns [T, N / dp] flattened, ``perms`` permute the
-        global batch (module docstring)."""
+        global batch, and ``params`` and ``opt_state`` hold the rank's tp
+        shards (module docstring)."""
         cfg = self.config
         mb_size = perms.shape[1] // cfg.nminibatches
         names = list(params)
@@ -273,14 +305,15 @@ class PPO2(BaseRLAgent):
         for perm in perms:
             for i in range(cfg.nminibatches):
                 idx = perm[i * mb_size:(i + 1) * mb_size]
-                leaves = {k: params[k].detach().requires_grad_(True) for k in names}
+                whole = self.whole_params(params, mesh)
+                leaves = {k: whole[k].detach().requires_grad_(True) for k in names}
                 if mesh is None:
                     loss, aux = self._loss(leaves, self._minibatch(data, idx), cfg.cliprange)
                     grads = torch.autograd.grad(loss, [leaves[k] for k in names])
                 else:
                     grads, aux = self._shard_grads(leaves, data, idx, mesh)
                 with torch.no_grad():
-                    self.optimizer_step_(params, dict(zip(names, grads)), opt_state)
+                    self.optimizer_step_(params, dict(zip(names, grads)), opt_state, mesh)
                 auxs.append(aux)
         if mesh is None:
             metrics = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
@@ -293,8 +326,9 @@ class PPO2(BaseRLAgent):
         return params, opt_state, metrics
 
     def _shard_grads(self, leaves, data, idx, mesh):
-        """(gradients summed over the ranks, this rank's loss parts) of the
-        global minibatch ``idx``; every rank gets the same gradients."""
+        """(gradients summed over the dp group, this rank's loss parts) of
+        the global minibatch ``idx``, each gradient the rank's tp shard of
+        it; the ranks of a dp group get the same gradients."""
         names = list(leaves)
         loss, aux = self._shard_loss(leaves, data, idx, mesh)
         if loss is None:
@@ -303,6 +337,7 @@ class PPO2(BaseRLAgent):
                                 torch.zeros((), device=idx.device))
         else:
             grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+        grads = list(shard_params(dict(zip(names, grads)), mesh).values())
         flat = mesh.all_reduce_(torch.cat([g.reshape(-1) for g in grads]))
         return [f.view_as(g) for f, g in zip(torch.split(flat, [g.numel() for g in grads]),
                                              grads)], aux
@@ -314,7 +349,9 @@ class PPO2(BaseRLAgent):
         mesh = state.mesh
         if mesh is not None and type(self) is not PPO2:
             refuse_mesh(self, state)
-        policy = lambda obs: self.apply(state.params, obs)
+        # The parameters do not change during the rollout: one gather.
+        whole = self.whole_params(state.params, mesh)
+        policy = lambda obs: self.apply(whole, obs)
         vstate, obs, obs_norm, last_norm_obs, batch = collect_rollout(
             self.vec_env, policy, state.vstate, state.obs, state.obs_norm, gen,
             cfg.n_steps, store_states=self.recompute_obs, mesh=mesh)

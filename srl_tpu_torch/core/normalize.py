@@ -34,8 +34,10 @@ class RunningNorm:
 
     def update(self, batch: torch.Tensor, mesh=None) -> "RunningNorm":
         """Chan et al. parallel update from a [B, ...] batch; with ``mesh``
-        (a ``parallel.mesh.Mesh``), from the batch of every rank, its count,
-        mean and squared deviations all-reduced."""
+        (a ``parallel.mesh.Mesh``), from the batch of every rank of the dp
+        group, its count, mean and squared deviations all-reduced (the ranks
+        of a tp group hold the same rows: over the world each would count tp
+        times)."""
         batch = batch.to(torch.float32)
         if mesh is None:
             batch_mean = batch.mean(0)

@@ -3,7 +3,7 @@ srl_tpu/parallel/distributed.py).
 
 The reference joins hosts into one JAX runtime. Here each process is one
 rank of a process group, on one card (NCCL) or on the CPU or a card through
-host memory (gloo), and the dp mesh spans every rank.
+host memory (gloo), and the dp x tp mesh spans every rank.
 
 Usage on every process, as ``torchrun`` starts them (it sets
 ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK`` and
@@ -11,7 +11,7 @@ Usage on every process, as ``torchrun`` starts them (it sets
 
     from srl_tpu_torch.parallel import distributed as dist, shard_ppo_state
     dist.initialize()                       # env-var driven; no-op for one process
-    mesh = dist.make_global_mesh()          # every rank, tp = 1
+    mesh = dist.make_global_mesh(tp=tp)     # every rank; dp = world size / tp
     dist.warmup_collectives(mesh)
     agent = PPO2(env=env, num_envs=global_num_envs, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed)   # alike on every rank
@@ -19,8 +19,10 @@ Usage on every process, as ``torchrun`` starts them (it sets
     state, metrics = agent.train_iteration(state, gen)
 
 ``srl_tpu_torch.parallel.dp_ppo`` is that script. Every random draw is made
-for the whole batch and each rank keeps ``local_env_slice`` of it, so
-trajectories do not depend on the process count.
+for the whole batch and each rank keeps its dp index's rows of it, so
+trajectories do not depend on the process count; with ``tp > 1`` the ranks
+of a tp group step the same rows and each holds its tp shard of the weights
+(``parallel/mesh.py``).
 """
 from __future__ import annotations
 
@@ -82,23 +84,30 @@ def _int_env(name: str) -> Optional[int]:
     return int(v) if v is not None else None
 
 
-def make_global_mesh(dp: Optional[int] = None, tp: int = 1, *, group=None) -> Mesh:
+def make_global_mesh(dp: Optional[int] = None, tp: int = 1, *, group=None,
+                     new_group=None) -> Mesh:
     """dp x tp mesh over every rank of the default group (or ``group``).
     Ranks are processes, in rank order, so each host's ranks lie
     contiguous along ``dp`` under ``torchrun``: the env batch shards
-    host-locally and only the reductions cross hosts."""
-    return make_mesh(None, dp, tp, group=group)
+    host-locally and only the reductions cross hosts. With dp and tp both
+    above 1, every rank makes every dp and tp sub-group with
+    ``torch.distributed.new_group``, in one order (``mesh.make_mesh``; a
+    ``group`` other than the default world passes ``new_group``)."""
+    return make_mesh(None, dp, tp, group=group, new_group=new_group)
 
 
 def warmup_collectives(mesh: Mesh, device=None) -> None:
-    """One all-reduce of a zero tensor over the mesh, right after it is
-    made, while the processes are still in step: a backend that connects on
-    first use then does so before per-process work (an env reset, a kernel
-    build) can put the processes further apart than its handshake waits.
-    ``device``: the card for NCCL, else the CPU."""
+    """One all-reduce of a zero tensor over each of the mesh's groups (the
+    world, the dp group, the tp group), right after it is made, while the
+    processes are still in step: a backend that connects on first use then
+    does so before per-process work (an env reset, a kernel build) can put
+    the processes further apart than its handshake waits. ``device``: the
+    card for NCCL, else the CPU."""
     if device is None:
         device = torch.cuda.current_device() if mesh.backend == "nccl" else "cpu"
+    mesh.any(torch.zeros(1, dtype=torch.bool, device=device))
     mesh.all_reduce_(torch.zeros(1, device=device))
+    mesh.tp_all_reduce_(torch.zeros(1, device=device))
 
 
 def local_env_slice(

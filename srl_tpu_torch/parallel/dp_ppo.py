@@ -1,21 +1,27 @@
-"""Data-parallel PPO2 over the ranks of a ``torch.distributed`` world.
+"""PPO2 over the ranks of a ``torch.distributed`` world, on a dp x tp mesh.
 
     torchrun --nproc-per-node 4 -m srl_tpu_torch.parallel.dp_ppo \\
         --env KukaButtonGymEnv-v0 --render-scale 2 --coarse-obs --num-envs 1024 --updates 20
 
+    torchrun --nproc-per-node 2 -m srl_tpu_torch.parallel.dp_ppo --tp 2 --backend gloo \\
+        --env MobileRobotGymEnv-v0 --srl-model raw_pixels --num-envs 256 --updates 2
+
 Every process joins the world (``distributed.initialize``: NCCL on cards;
 gloo with ``--device cpu``, or ``--backend gloo`` for card tensors through
-host memory), lays PPO2's state for the global batch of ``--num-envs`` out
-on the dp mesh of every rank (``shard_ppo_state``) and trains ``--updates``
-updates. Started alone (no ``MASTER_ADDR``), it trains the same batch in one
-process. Flags it does not know build the env as the training CLI's do
-(``--env``, ``--srl-model``, ``--mixed-envs``, ``--render-scale``,
-``--coarse-obs``, ...).
+host memory, as two ranks on one card need), lays PPO2's state for the
+global batch of ``--num-envs`` out on the mesh of every rank, ``--tp`` ranks
+to a tp group (``shard_ppo_state``), and trains ``--updates`` updates.
+Started alone (no ``MASTER_ADDR``), it trains the same batch in one process.
+Flags it does not know build the env as the training CLI's do (``--env``,
+``--srl-model``, ``--mixed-envs``, ``--render-scale``, ``--coarse-obs``,
+...).
 
 Each rank prints one line ``DP_PPO {json}``: the update's pg_loss, the
-parameters' sum of squares, env-steps/s of the global batch and of the
-rank's rows, the seconds of the mesh's collectives per update, the render
-kernels' launches while training and the card's peak memory. With
+whole parameters' sum of squares, env-steps/s of the global batch and of the
+rank's rows, the seconds of the world's and dp group's collectives per
+update and, apart, of the tp group's (the weight gathers and the norm's
+sums), ``state_mb`` (the bytes of the rank's parameters and Adam moments),
+the render kernels' launches while training and the card's peak memory. With
 ``--fingerprint-steps K`` it first steps a fresh env batch K times with the
 actions ``(global env index + step) % n_actions`` and keeps each step's
 rewards, dones and a fingerprint of each env's observation (a frame's
@@ -53,6 +59,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--nminibatches", type=int, default=PPOConfig.nminibatches)
     p.add_argument("--noptepochs", type=int, default=PPOConfig.noptepochs)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--tp", type=int, default=1,
+                   help="ranks to a tp group, each holding 1/tp of the weights' output "
+                        "features; dp is the world size over tp")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
                    help="default: nccl on cuda, gloo on cpu")
@@ -110,11 +119,18 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def state_mb(state) -> float:
+    """MB (1e6 bytes) of the parameters and Adam's moments a state holds."""
+    trees = [state.params, state.opt_state["mu"], state.opt_state["nu"]]
+    return sum(v.numel() * v.element_size() for t in trees for v in t.values()) / 1e6
+
+
 def train(agent: PPO2, mesh, seed: int, updates: int) -> dict:
-    """``updates`` PPO2 updates from seed ``seed``, data-parallel on
-    ``mesh`` (or in one process): per-update pg_loss, seconds and collective
-    seconds, the final flat parameters and the kernels' launches while
-    training (the counts set to 0 after the initial reset)."""
+    """``updates`` PPO2 updates from seed ``seed`` on ``mesh`` (or in one
+    process): per-update pg_loss, seconds and collective seconds (the tp
+    group's apart), the final whole flat parameters, the state's MB and the
+    kernels' launches while training (the counts set to 0 after the initial
+    reset)."""
     agent.n_updates = updates
     gen = torch.Generator(device=agent.device).manual_seed(seed)
     for module in KERNELS.values():
@@ -126,17 +142,22 @@ def train(agent: PPO2, mesh, seed: int, updates: int) -> dict:
         state = shard_ppo_state(state, mesh)
     for module in KERNELS.values():
         module.launches = 0
-    pg_loss, seconds, collective_s = [], [], []
+    pg_loss, seconds, collective_s, tp_collective_s = [], [], [], []
+    clock = lambda: (0.0, 0.0) if mesh is None else (mesh.seconds, mesh.tp_seconds)
     for _ in range(updates):
         _sync(agent.device)
-        t0, c0 = time.perf_counter(), 0.0 if mesh is None else mesh.seconds
+        t0, (c0, tp0) = time.perf_counter(), clock()
         state, metrics = agent.train_iteration(state, gen)
         pg_loss.append(float(metrics["pg_loss"]))
         _sync(agent.device)
         seconds.append(time.perf_counter() - t0)
-        collective_s.append(0.0 if mesh is None else mesh.seconds - c0)
-    params = torch.cat([v.reshape(-1) for v in state.params.values()]).cpu()
+        c1, tp1 = clock()
+        collective_s.append(c1 - c0)
+        tp_collective_s.append(tp1 - tp0)
+    whole = agent.whole_params(state.params, mesh)
+    params = torch.cat([v.reshape(-1) for v in whole.values()]).cpu()
     return {"pg_loss": pg_loss, "seconds": seconds, "collective_s": collective_s,
+            "tp_collective_s": tp_collective_s, "state_mb": state_mb(state),
             "params0": params0, "params": params,
             "param_sq": float(params.double().square().sum()),
             "rows": int(state.obs.shape[0]), "init_launches": init_launches,
@@ -149,6 +170,7 @@ def run(args, env_argv, mesh=None) -> dict:
     device = resolve_device(args.device)
     agent = make_agent(args, env_argv, device)
     result = {"rank": 0 if mesh is None else mesh.rank, "dp": 1 if mesh is None else mesh.dp,
+              "tp": 1 if mesh is None else mesh.tp,
               "backend": None if mesh is None else mesh.backend,
               "family_counts": getattr(agent.vec_env, "counts", None)}
     if args.fingerprint_steps:
@@ -181,8 +203,11 @@ def main(argv: Optional[list] = None) -> dict:
     args, env_argv = build_parser().parse_known_args(argv)
     joined = distributed.initialize(device=args.device, backend=args.backend,
                                     timeout=datetime.timedelta(seconds=args.timeout))
+    if args.tp > 1 and not joined:
+        raise ValueError(f"--tp {args.tp} needs a world of processes (torchrun, or "
+                         f"MASTER_ADDR, MASTER_PORT, WORLD_SIZE and RANK)")
     try:
-        mesh = distributed.make_global_mesh() if joined else None
+        mesh = distributed.make_global_mesh(tp=args.tp) if joined else None
         if mesh is not None:
             distributed.warmup_collectives(mesh)
         if args.start_after:

@@ -1,31 +1,42 @@
-"""The process-group mesh and the data-parallel layout of the actor-learner
+"""The process-group mesh and the dp x tp layout of the actor-learner
 (counterpart of srl_tpu/parallel/mesh.py).
 
 The reference lays a dp x tp grid of devices out for XLA GSPMD and lets the
 compiler insert the collectives. Here a rank of a ``torch.distributed``
-process group plays a device: a ``Mesh`` holds its group explicitly, as the
-port holds its generators explicitly, and every collective goes through
-``mesh.group``, never the implicit default group (so that the tests build
-the ranks of a mesh in one process).
+process group plays a device: a ``Mesh`` holds its groups explicitly, as the
+port holds its generators explicitly, and every collective goes through one
+of them, never the implicit default group (so that the tests build the ranks
+of a mesh in one process).
 
 * ``dp``, the env batch axis: rank ``r`` owns the contiguous global env rows
-  ``[lo, hi) = mesh.env_slice(num_envs)``. Every random draw is made at the
-  global size from a generator that all ranks seed alike, and each rank keeps
-  its rows, so rank ``r`` steps rows ``[lo, hi)`` of the one-process run bit
-  for bit (``core/env.py``, ``agents/common.py``). PPO2's update
-  (``agents/ppo.py``) computes the loss terms of the rows each rank owns in
-  every global minibatch and all-reduces them and the gradients with SUM:
-  the one-process step, up to the order of the reductions.
-* ``tp``: the reference shards each weight's output features over ``tp``,
-  which changes where weights live, not what is computed. The port's target
-  is one card: ``make_mesh`` returns the reference's shape for ``tp > 1``,
-  but ``shard_params`` and ``shard_ppo_state`` refuse it.
+  ``[lo, hi) = mesh.env_slice(num_envs)`` of its dp index. Every random draw
+  is made at the global size from a generator that all ranks seed alike, and
+  each rank keeps its rows, so rank ``r`` steps rows ``[lo, hi)`` of the
+  one-process run bit for bit (``core/env.py``, ``agents/common.py``).
+  PPO2's update (``agents/ppo.py``) computes the loss terms of the rows each
+  rank owns in every global minibatch and all-reduces them and the gradients
+  with SUM: the one-process step, up to the order of the reductions.
+* ``tp``, the output features of the weights: a rank keeps its ``1/tp``
+  shard of dim 0 of every leaf whose dim 0 divides by tp (``shard_params``;
+  the reference's last dim is the port's dim 0), of the parameters and of
+  Adam's ``mu`` and ``nu``, and the whole of every other leaf. This changes
+  where weights live, not what is computed: the ranks of a tp group hold the
+  same env rows and step them alike, gather the whole weights before a
+  forward (``gather_params``), keep their shard's slice of the gradient and
+  run Adam on their shards only (``agents/ppo.py``).
+
+The data reductions (``all_reduce_``, ``all_gather``, ``mean``,
+``moments``) go over the rank's dp group, the ranks that share its tp
+index: over the whole world each row would count tp times. The weight
+gather and the gradient norm's partial sums (``tp_all_gather``,
+``tp_all_reduce_``) go over its tp group, the ranks that share its dp
+index; ``any`` goes over the world.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -47,15 +58,22 @@ def env_rows(global_num_envs: int, process_id: int,
 @dataclasses.dataclass
 class Mesh:
     """A ``dp x tp`` grid over the ranks of ``group``, row-major: rank ``r``
-    sits at ``(r // tp, r % tp)``. ``seconds`` counts the time spent in this
-    mesh's collectives (a card is synchronized before each, so that the time
-    is the collective's own)."""
+    sits at ``(r // tp, r % tp)``. ``dp_group`` holds the ranks of this
+    rank's column (``group`` itself when tp is 1, None when dp is 1: a
+    reduction over one rank is no collective), ``tp_group`` those of its row
+    (``group`` when dp is 1, None when tp is 1). ``seconds`` counts the time
+    spent in the world's and the dp group's collectives, ``tp_seconds`` in
+    the tp group's (a card is synchronized before each, so that the time is
+    the collective's own)."""
 
     group: object  # a torch.distributed ProcessGroup, or a backend such as ProcessGroupGloo
     dp: int
     tp: int
     rank: int
+    dp_group: object = None
+    tp_group: object = None
     seconds: float = 0.0
+    tp_seconds: float = 0.0
 
     @property
     def shape(self) -> dict:
@@ -66,6 +84,10 @@ class Mesh:
         return self.rank // self.tp
 
     @property
+    def tp_index(self) -> int:
+        return self.rank % self.tp
+
+    @property
     def backend(self) -> str:
         return self.group.name()
 
@@ -73,42 +95,67 @@ class Mesh:
         """[lo, hi) of a batch of ``num_envs`` envs that this rank owns."""
         return env_rows(num_envs, self.dp_index, self.dp)
 
-    # ---- collectives, all through ``self.group`` ---------------------------
-    def _wait(self, work, t: torch.Tensor) -> None:
-        work.wait()
-        if t.is_cuda:
-            torch.cuda.current_stream(t.device).synchronize()
-
-    def all_reduce_(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """``t`` reduced over the group, in place."""
+    # ---- collectives, each through one of the mesh's groups -----------------
+    @staticmethod
+    def _run(t: torch.Tensor, start) -> float:
+        """Seconds of the collective ``start()`` on ``t``, waited for."""
         if t.is_cuda:
             torch.cuda.current_stream(t.device).synchronize()
         t0 = time.perf_counter()
+        start().wait()
+        if t.is_cuda:
+            torch.cuda.current_stream(t.device).synchronize()
+        return time.perf_counter() - t0
+
+    def _all_reduce(self, group, t: torch.Tensor, op: str) -> float:
         opts = dist.AllreduceOptions()
         opts.reduceOp = _REDUCE_OPS[op]
-        self._wait(self.group.allreduce([t], opts), t)
-        self.seconds += time.perf_counter() - t0
+        return self._run(t, lambda: group.allreduce([t], opts))
+
+    def _all_gather(self, group, t: torch.Tensor, dim: int) -> Tuple[torch.Tensor, float]:
+        t = t.contiguous()
+        outs = [torch.empty_like(t) for _ in range(group.size())]
+        seconds = self._run(t, lambda: group.allgather([outs], [t]))
+        return torch.cat(outs, dim), seconds
+
+    def all_reduce_(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``t`` reduced over the dp group, in place."""
+        if self.dp_group is not None:
+            self.seconds += self._all_reduce(self.dp_group, t, op)
         return t
 
     def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
-        """Every rank's ``t`` concatenated in rank order along ``dim``."""
-        t = t.contiguous()
-        if t.is_cuda:
-            torch.cuda.current_stream(t.device).synchronize()
-        t0 = time.perf_counter()
-        outs = [torch.empty_like(t) for _ in range(self.dp * self.tp)]
-        self._wait(self.group.allgather([outs], [t]), t)
-        self.seconds += time.perf_counter() - t0
-        return torch.cat(outs, dim)
+        """The dp group's ``t`` concatenated in rank order along ``dim``."""
+        if self.dp_group is None:
+            return t
+        out, seconds = self._all_gather(self.dp_group, t, dim)
+        self.seconds += seconds
+        return out
+
+    def tp_all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the tp group, in place."""
+        if self.tp_group is not None:
+            self.tp_seconds += self._all_reduce(self.tp_group, t, "sum")
+        return t
+
+    def tp_all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The tp group's ``t`` concatenated in tp-index order along dim 0."""
+        if self.tp_group is None:
+            return t
+        out, seconds = self._all_gather(self.tp_group, t, 0)
+        self.tp_seconds += seconds
+        return out
 
     def any(self, flags: torch.Tensor) -> bool:
         """Whether any rank has a true entry in ``flags``: one all-reduce of
-        one int, read on the host."""
-        return bool(self.all_reduce_(flags.any().to(torch.int32).reshape(1), "max"))
+        one int over the world, read on the host."""
+        flag = flags.any().to(torch.int32).reshape(1)
+        self.seconds += self._all_reduce(self.group, flag, "max")
+        return bool(flag)
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:
-        """The mean of every entry of ``x`` over all ranks (one all-reduce of
-        the sum and the count)."""
+        """The mean of every entry of ``x`` over the dp group's ranks (one
+        all-reduce of the sum and the count)."""
         packed = torch.stack([x.sum().to(torch.float32),
                               torch.tensor(float(x.numel()), device=x.device)])
         total, count = self.all_reduce_(packed)
@@ -116,8 +163,8 @@ class Mesh:
 
     def moments(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(mean, variance with ddof 0, count) over the rows of ``x`` [n, ...]
-        on all ranks, two all-reduces: the count and the sum, then the
-        squared deviations from the global mean."""
+        on the dp group's ranks, two all-reduces: the count and the sum, then
+        the squared deviations from the global mean."""
         x = x.to(torch.float32)
         count = torch.tensor([float(x.shape[0])], device=x.device)
         packed = self.all_reduce_(torch.cat([count, x.sum(0).reshape(-1)]))
@@ -128,14 +175,24 @@ class Mesh:
 
 
 def make_mesh(n_devices: Optional[int] = None, dp: Optional[int] = None, tp: int = 1, *,
-              group=None) -> Mesh:
+              group=None, new_group: Optional[Callable] = None) -> Mesh:
     """A ``dp x tp`` mesh over the ranks of ``group`` (the default world
-    when None). ``n_devices``, the ranks it spans, is the group's size."""
+    when None). ``n_devices``, the ranks it spans, is the group's size.
+
+    With dp and tp both above 1 each rank needs a dp and a tp group:
+    ``new_group(ranks)`` makes the group of ``ranks`` (ranks of ``group``).
+    Every rank calls it for every sub-group in the same order, the dp groups
+    (tp index 0, 1, ...) then the tp groups (dp index 0, 1, ...), as
+    ``torch.distributed.new_group`` must be called; it may return None for a
+    group without the calling rank. On the default world it defaults to
+    ``torch.distributed.new_group``; another ``group`` (the tests' one
+    backend per thread on a shared store) passes its own."""
     if group is None:
         group = dist.group.WORLD
         if group is None:
             raise RuntimeError("no default process group: call "
                                "parallel.distributed.initialize() first, or pass group=")
+        new_group = new_group or dist.new_group
     size = group.size()
     if n_devices is None:
         n_devices = size
@@ -145,16 +202,26 @@ def make_mesh(n_devices: Optional[int] = None, dp: Optional[int] = None, tp: int
     if n_devices != size:
         raise ValueError(f"a mesh spans every rank of its group: {n_devices} devices "
                          f"asked of a group of {size} (make a group of {n_devices} ranks)")
-    return Mesh(group=group, dp=dp, tp=tp, rank=group.rank())
-
-
-def _refuse_tp(mesh: Mesh) -> None:
-    if mesh.tp > 1:
-        raise ValueError(
-            f"tp={mesh.tp}: the port does not shard weights over ranks. The reference's "
-            f"tp lays each weight's output features over tp devices, which changes where "
-            f"the weights live and not what is computed; the port targets one card and "
-            f"keeps every weight whole on each rank. Use a mesh with tp=1 (dp ranks)")
+    mesh = Mesh(group=group, dp=dp, tp=tp, rank=group.rank())
+    if tp == 1:
+        mesh.dp_group = group
+    elif dp == 1:
+        mesh.tp_group = group
+    elif new_group is None:
+        raise ValueError(f"a dp{dp} x tp{tp} mesh over a group that is not the default "
+                         f"world needs new_group= to make its dp and tp sub-groups")
+    else:
+        for t in range(tp):
+            ranks = [d * tp + t for d in range(dp)]
+            made = new_group(ranks)
+            if mesh.rank in ranks:
+                mesh.dp_group = made
+        for d in range(dp):
+            ranks = [d * tp + t for t in range(tp)]
+            made = new_group(ranks)
+            if mesh.rank in ranks:
+                mesh.tp_group = made
+    return mesh
 
 
 def _map_tree(fn, tree):
@@ -185,18 +252,55 @@ def shard_batch(tree, mesh: Mesh):
     return _map_tree(take, tree)
 
 
+def tp_sharded(shape, tp: int) -> bool:
+    """Whether a leaf of ``shape`` (the whole leaf's) is sharded over ``tp``:
+    the reference's rule on its output-feature dim, the port's dim 0."""
+    return len(shape) >= 1 and tp > 1 and shape[0] % tp == 0 and shape[0] >= tp
+
+
 def shard_params(params, mesh: Mesh):
-    """Parameters (or optimizer state) laid out over ``tp``: with tp=1
-    every rank holds them whole, as they are; tp > 1 is refused."""
-    _refuse_tp(mesh)
-    return params
+    """Parameters (or optimizer state) laid out over ``tp``: this rank's rows
+    ``[i * n / tp, (i + 1) * n / tp)`` of dim 0 (``i`` its tp index) of every
+    tensor whose dim 0 ``n`` divides by tp; every other leaf whole, as it is.
+    The reference shards the output-feature dim, its last: the port's dim 0
+    of a ``Linear`` weight ``[out, in]``, a conv weight ``[O, C, kh, kw]``, a
+    bias or ``log_std``."""
+
+    def take(x):
+        if not tp_sharded(x.shape, mesh.tp):
+            return x
+        n = x.shape[0] // mesh.tp
+        return x[mesh.tp_index * n:(mesh.tp_index + 1) * n].clone()
+
+    return _map_tree(take, params)
+
+
+def gather_params(params: Dict[str, torch.Tensor], mesh: Mesh,
+                  shapes: Dict[str, tuple]) -> Dict[str, torch.Tensor]:
+    """The whole leaves of a tp layout (``shard_params``) of ``{name:
+    tensor}``, ``shapes`` the whole leaves' shapes: one all-gather over the tp
+    group of the rank's sharded leaves flattened, each leaf's shards then
+    joined in tp-index order. A collective: every rank of the tp group calls
+    it. ``params`` itself when tp is 1."""
+    names = [k for k in params if tp_sharded(shapes[k], mesh.tp)]
+    if not names:
+        return params
+    parts = mesh.tp_all_gather(torch.cat([params[k].reshape(-1) for k in names]))
+    parts = parts.view(mesh.tp, -1)
+    out, offset = dict(params), 0
+    for k in names:
+        n = params[k].numel()
+        out[k] = parts[:, offset:offset + n].reshape(shapes[k])
+        offset += n
+    return out
 
 
 def shard_ppo_state(state, mesh: Mesh):
     """A PPO2 ``PPOState`` laid out on ``mesh``: this rank's rows of the env
-    batch (the vector env's state and the observations), the parameters, the
-    optimizer and the normalizer whole. ``agent.train_iteration`` then trains
-    data-parallel over the mesh."""
+    batch (the vector env's state and the observations), its tp shards of the
+    parameters and of Adam's ``mu`` and ``nu`` (``shard_params``), Adam's
+    count and the normalizer whole. ``agent.train_iteration`` then trains
+    over the mesh."""
     from srl_tpu_torch.agents.base import PPOState
     from srl_tpu_torch.core.env import take_rows
 
@@ -206,7 +310,6 @@ def shard_ppo_state(state, mesh: Mesh):
                          f"data-parallel, as in the reference")
     if state.mesh is not None:
         raise ValueError("the state is laid out on a mesh already")
-    _refuse_tp(mesh)
     lo, hi = mesh.env_slice(state.obs.shape[0])
     return dataclasses.replace(
         state, vstate=take_rows(state.vstate, lo, hi), obs=state.obs[lo:hi],

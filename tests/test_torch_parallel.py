@@ -2,8 +2,9 @@
 against srl_tpu.parallel and against the port's one-process runs, on the CPU.
 
 The ranks of a mesh are built in this process: one gloo backend per rank on
-a shared ``HashStore`` (no TCP port, no ``init_process_group``), one thread
-per rank, joined with a timeout (``run_ranks``). The cases follow
+a shared ``HashStore`` (no TCP port, no ``init_process_group``), and one per
+rank and dp or tp sub-group on a ``PrefixStore`` of the same store, one
+thread per rank, joined with a timeout (``run_ranks``). The cases follow
 tests/test_sharding.py and test_distributed_wiring:
 
 * MobileRobot trajectories (32 envs, 64 steps, actions ``(arange(N) + i) %
@@ -14,10 +15,11 @@ tests/test_sharding.py and test_distributed_wiring:
   the reference's does (64 envs over 8), and a meshed step of it is the
   one-process step's rows;
 * the normalizer's all-reduced update equals the one-process update of the
-  concatenated batch; ``tp > 1`` and every agent but PPO2 are refused, and
+  concatenated batch; every agent but PPO2 is refused a meshed state, and
   the entry points do not fall back to the CPU.
 
-PPO2's update and curves over dp are tests/test_torch_parallel_ppo.py.
+PPO2's update and curves over dp are tests/test_torch_parallel_ppo.py, over
+dp x tp tests/test_torch_tensor_parallel.py.
 """
 import dataclasses
 import datetime
@@ -41,7 +43,7 @@ from srl_tpu_torch.core.env import VecEnv, take_rows
 from srl_tpu_torch.core.normalize import RunningNorm
 from srl_tpu_torch.envs import mobile_robot as tm
 from srl_tpu_torch.parallel import distributed as dist
-from srl_tpu_torch.parallel import make_mesh, shard_batch, shard_params, shard_ppo_state
+from srl_tpu_torch.parallel import make_mesh, shard_batch, shard_ppo_state
 
 from .test_torch_mobile_robot import jax_reset_noise, jax_step_noise
 
@@ -56,16 +58,23 @@ BUILD = threading.Lock()
 
 def run_ranks(n: int, fn, tp: int = 1) -> list:
     """``fn(mesh)`` on each of ``n`` ranks of a dp x tp mesh, each rank a
-    thread with its own gloo backend; returns the ranks' results in rank
+    thread with its own gloo backends (the world and, for dp and tp both
+    above 1, its dp and tp groups); returns the ranks' results in rank
     order, or raises the first failure."""
     store = tdist.HashStore()
+    timeout = datetime.timedelta(seconds=RANK_TIMEOUT)
     results, errors = [None] * n, []
 
     def rank_main(rank):
+        def new_group(ranks):
+            if rank not in ranks:
+                return None
+            return tdist.ProcessGroupGloo(tdist.PrefixStore(f"sub{ranks}", store),
+                                          ranks.index(rank), len(ranks), timeout)
+
         try:
-            group = tdist.ProcessGroupGloo(tdist.PrefixStore("mesh", store), rank, n,
-                                           datetime.timedelta(seconds=RANK_TIMEOUT))
-            results[rank] = fn(make_mesh(tp=tp, group=group))
+            group = tdist.ProcessGroupGloo(tdist.PrefixStore("mesh", store), rank, n, timeout)
+            results[rank] = fn(dist.make_global_mesh(tp=tp, group=group, new_group=new_group))
         except BaseException as e:  # noqa: BLE001 - re-raised below
             errors.append((time.monotonic(), rank, e))
 
@@ -87,11 +96,12 @@ def test_wiring_matches_the_reference(monkeypatch):
     for name in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
         monkeypatch.delenv(name, raising=False)
     assert dist.initialize() is False and not tdist.is_initialized()
-    shapes = run_ranks(8, lambda mesh: (dist.make_global_mesh(tp=2, group=mesh.group).shape,
-                                        dist.make_global_mesh(group=mesh.group).shape,
-                                        mesh.dp_index))
+    shapes = run_ranks(8, lambda mesh: (mesh.shape, dist.make_global_mesh(group=mesh.group).shape,
+                                        (mesh.dp_index, mesh.tp_index)), tp=2)
     assert all(s[:2] == ({"dp": 4, "tp": 2}, {"dp": 8, "tp": 1}) for s in shapes)
-    assert [s[2] for s in shapes] == list(range(8))
+    assert [s[2] for s in shapes] == [(r // 2, r % 2) for r in range(8)]
+    with pytest.raises(ValueError, match="needs new_group= to make its dp and tp sub-groups"):
+        run_ranks(8, lambda mesh: dist.make_global_mesh(tp=2, group=mesh.group))
     slices = [dist.local_env_slice(8192, process_id=p, process_count=4) for p in range(4)]
     assert slices == [jdist.local_env_slice(8192, process_id=p, process_count=4)
                       for p in range(4)]
@@ -268,21 +278,6 @@ def test_normalizer_update_over_ranks_is_the_concatenated_update():
 
 
 # ---- what the port refuses ---------------------------------------------------
-
-def test_tp_above_one_is_refused_with_its_reason():
-    agent = PPO2(env=tm.MobileRobotEnv(), num_envs=4, device="cpu")
-    state = agent.init_state(torch.Generator().manual_seed(0))
-
-    def refused(mesh):
-        assert mesh.shape == {"dp": 1, "tp": 2}
-        for call in (lambda: shard_params(state.params, mesh),
-                     lambda: shard_ppo_state(state, mesh)):
-            with pytest.raises(ValueError, match="tp=2: the port does not shard weights"):
-                call()
-        return True
-
-    assert run_ranks(2, refused, tp=2) == [True, True]
-
 
 def test_only_ppo2_trains_a_meshed_state():
     from srl_tpu_torch.agents.a2c import A2C

@@ -9,11 +9,9 @@ reason; a listed name that the port has after all fails the test too, so
 the lists shrink as the port grows.
 
 ``srl_tpu.parallel`` (A12) is held like every other module. The port has
-all of its names; what it leaves out is a behaviour, not a name: ``tp > 1``.
-The reference lays each weight's output features over ``tp`` devices, which
-changes where the weights live and not what is computed; the port targets
-one card, so ``shard_params`` and ``shard_ppo_state`` refuse ``tp > 1`` and
-say why (tests/test_torch_parallel.py). The reference's
+every name and every behaviour of it, ``tp > 1`` included: each rank holds
+its tp shard of the weights' output features
+(tests/test_torch_tensor_parallel.py). The reference's
 ``test_eight_devices_available`` and ``test_graft_dryrun_multichip``
 (tests/test_sharding.py) check its TPU harness (eight virtual XLA devices,
 ``__graft_entry__.py``) and have no counterpart in the port.
