@@ -177,7 +177,20 @@ Phases, each reported on its own lines; any failure exits non-zero:
    (render3d 128, 128, 0 and 0 launches), held to 13c's bars against 13c's
    one process and to the one-update bar against 13c's dp2 x tp1 ranks. Each
    prints each rank's ``state_mb`` (its parameters and Adam moments) beside
-   the one process's, and the tp group's collectives' seconds apart.
+   the one process's, and the tp group's collectives' seconds apart;
+15. the other agents whose state ``shard_ppo_state`` lays out, each through
+   ``dp_ppo --algo ... [--policy cnnlstm]`` at 256 global envs over two gloo
+   processes on the card (128 a rank), against one process on the same
+   batch, each agent's default config cut in depth only (``DP_AGENT_RUNS``):
+   15a PPO1, 15b A2C, 15c TRPO, 15f ACER on the Kuka pixel path (render3d),
+   15d the recurrent PPO2 and 15e the recurrent A2C (``cnnlstm``) and 15g
+   RecurrentACER (``cnnlstm``) on MobileRobot 224x224 (render2d); 15h TRPO
+   on dp1 x tp2, each rank stepping all 256 envs, against 15c's one process.
+   Each run: 16 fingerprinted steps equal to one process's rows, finite
+   losses, 13b's bars (the loss within the curve bar: pg_loss, TRPO's kl,
+   ACER's entropy; the parameters within a tenth of their step; 15h, whose
+   ranks run the one-process shapes, the one-update bar), and each rank's
+   launches exactly n_steps an update (at N=128; N=256 in 15h).
 
 The line before the last is a JSON object with each kernel's numbers, the
 last ``{"ok": true, "device": {...}}``. Needs the card and the rest of the
@@ -1686,32 +1699,101 @@ DP_CHILD_TIMEOUT = 240.0  # seconds the ranks of 13b, 13c, 14a or 14b may take
 PG_RTOL, PG_ATOL, PARAM_RTOL, PARAM_ATOL = 1e-4, 1e-5, 1e-3, 1e-5
 CURVE_RTOL, CURVE_ATOL = 5e-3, 1e-4
 STEP_RTOL = 0.1
+# Step 15's bars (see DP_AGENT_RUNS): each first gradient the agent hands on
+# (the optimizer's after the dp all-reduce, TRPO's surrogate gradient too)
+# within GRAD_RTOL of one process's over the whole vector; ACER's first
+# iteration, made before any step, on the one-update bar for FIRST_KEYS.
+# Measured on an H100 (scripts/dp_bar_check.py; PERF.md, section 6):
+# the sound runs 0.16-1.15% from one process, the same to the digit in
+# every run; with rank 1's share left out of the gradient all-reduces 43-52%
+# (4.6% in 15d, whose first minibatch draws its signal from rank 0's
+# envs), with the sum dp times too large 100%.
+GRAD_RTOL = 0.02
+FIRST_KEYS = ("loss_policy", "loss_q")
 
 
-def hold_dp(torch, got: dict, want: dict, what: str, own_rows: bool) -> str:
-    """pg_loss and parameters of a dp run against the one-process run's
-    (``own_rows``: each rank runs the policy over its own rows; see above);
-    returns the differences."""
-    pg, pg_want = np.asarray(got["pg_loss"]), np.asarray(want["pg_loss"])
+def first_grads_off(got: dict, want: dict) -> dict:
+    """For each gradient site the dp run and one process both kept
+    (``dp_ppo``'s ``grads0``: the first gradient the agent handed on),
+    |g_dp - g_one| / |g_one| over the whole vector."""
+    if not got.get("grads0") or not want.get("grads0"):
+        return {}
+    return {k: ((got["grads0"][k].double() - g.double()).norm() / g.double().norm()).item()
+            for k, g in want["grads0"].items()}
+
+
+def leaf_reading(torch, got: dict, want: dict, top: int = 3) -> str:
+    """The ``top`` leaves that hold most of |p_dp - p_one|^2: each one's
+    share of it and its own |p_dp - p_one| / |p_one - p_0|."""
+    names, sizes = zip(*want["leaves"])
+    split = lambda x: dict(zip(names, torch.split(x.double(), list(sizes))))
+    off = split(got["params"] - want["params"])
+    step = split(want["params"] - want["params0"])
+    total = sum(v.square().sum().item() for v in off.values()) or 1.0
+    worst = sorted(names, key=lambda k: -off[k].square().sum().item())[:top]
+    return ", ".join(f"{k} {off[k].square().sum().item() / total:.0%} of it "
+                     f"({off[k].norm().item() / max(step[k].norm().item(), 1e-30):.1%} of its step)"
+                     for k in worst)
+
+
+def hold_dp(torch, got: dict, want: dict, what: str, own_rows: bool,
+            held: tuple = ("curve", "step")) -> str:
+    """The loss (pg_loss; TRPO's kl, ACER's loss_policy: ``loss_metric``),
+    first gradients and parameters of a dp run against the one-process
+    run's; returns the differences. Where a rank runs the policy over its own
+    rows (``own_rows``; see above), the bars named in ``held``: "curve" (the
+    loss of every update within the curve bar), "step" (|p_dp - p_one| <=
+    STEP_RTOL of the step), "first" (the first update's FIRST_KEYS within the
+    one-update bar), "grad" (each first gradient within GRAD_RTOL); else the
+    one-update bar on the loss and every parameter."""
+    name = want["loss_metric"]
+    pg, pg_want = np.asarray(got[name]), np.asarray(want[name])
     params, params_want = got["params"].double(), want["params"].double()
     step = (params_want - want["params0"].double()).norm().item()
     off = (params - params_want).norm().item()
-    rtol, atol = (CURVE_RTOL, CURVE_ATOL) if own_rows else (PG_RTOL, PG_ATOL)
-    ok = bool(np.all(np.abs(pg - pg_want) <= atol + rtol * np.abs(pg_want)))
-    if own_rows:
-        ok = ok and off <= STEP_RTOL * step
+    grads_off = first_grads_off(got, want)
+    close = lambda a, b, rtol, atol: bool(np.all(np.abs(np.asarray(a) - np.asarray(b))
+                                                 <= atol + rtol * np.abs(np.asarray(b))))
+    failed = []
+    if not own_rows:
+        if not close(pg, pg_want, PG_RTOL, PG_ATOL):
+            failed.append(f"{name} rtol {PG_RTOL} atol {PG_ATOL}")
+        if not bool(((params - params_want).abs()
+                     <= PARAM_ATOL + PARAM_RTOL * params_want.abs()).all()):
+            failed.append(f"parameters rtol {PARAM_RTOL} atol {PARAM_ATOL}")
     else:
-        ok = ok and bool(((params - params_want).abs()
-                          <= PARAM_ATOL + PARAM_RTOL * params_want.abs()).all())
-    diff = (f"pg_loss {pg.tolist()} vs {pg_want.tolist()} (|diff| "
+        if "curve" in held and not close(pg, pg_want, CURVE_RTOL, CURVE_ATOL):
+            failed.append(f"{name} rtol {CURVE_RTOL} atol {CURVE_ATOL}")
+        if "step" in held and not off <= STEP_RTOL * step:
+            failed.append(f"|p_dp - p_one| <= {STEP_RTOL} |p_one - p_0|")
+        if "first" in held:
+            failed += [f"the first {k} rtol {PG_RTOL} atol {PG_ATOL}" for k in FIRST_KEYS
+                       if not close(got["metrics"][k][0], want["metrics"][k][0], PG_RTOL,
+                                    PG_ATOL)]
+        if "grad" in held:
+            if not grads_off:
+                failed.append("first gradients kept")
+            failed += [f"the first {k} gradient |g_dp - g_one| <= {GRAD_RTOL} |g_one|"
+                       for k, v in grads_off.items() if not v <= GRAD_RTOL]
+    diff = (f"{name} {pg.tolist()} vs {pg_want.tolist()} (|diff| "
             f"{np.abs(pg - pg_want).tolist()}); parameters max |diff| "
             f"{(params - params_want).abs().max().item():.3g}, |p_dp - p_one| {off:.4g} of "
             f"the step |p_one - p_0| {step:.4g} ({off / step:.3%})")
-    if not ok:
-        bar = (f"pg_loss rtol {rtol} atol {atol}, "
-               + (f"|p_dp - p_one| <= {STEP_RTOL} |p_one - p_0|" if own_rows else
-                  f"parameters rtol {PARAM_RTOL} atol {PARAM_ATOL}"))
-        raise AssertionError(f"{what}: not within {bar}: {diff}")
+    if off > 0 and "leaves" in want:
+        diff += f", most in {leaf_reading(torch, got, want)}"
+    if grads_off:
+        diff += "; the first gradients' |g_dp - g_one| / |g_one|: " + ", ".join(
+            f"{k} {v:.3%}" for k, v in grads_off.items())
+    if "metrics" in want:
+        moved = {k: max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(got["metrics"][k], v))
+                 for k, v in want["metrics"].items()}
+        diff += "; every metric's largest relative |diff|: " + ", ".join(
+            f"{k} {v:.2g}" for k, v in moved.items())
+        if "first" in held:
+            diff += "; the first update's " + ", ".join(
+                f"{k} {got['metrics'][k][0]} vs {want['metrics'][k][0]}" for k in FIRST_KEYS)
+    if failed:
+        raise AssertionError(f"{what}: not within {'; '.join(failed)}: {diff}")
     return diff
 
 
@@ -1771,14 +1853,17 @@ def nccl_one_rank(torch, card: str) -> dict:
 
 
 def gloo_ranks(torch, argv: list, what: str, card: str, kernel: str, expected: list,
-               one: dict = None) -> tuple:
+               one: dict = None, held: tuple = ("curve", "step"),
+               launch: tuple = ("-m", "srl_tpu_torch.parallel.dp_ppo")) -> tuple:
     """Steps 13b, 13c and 14: ``dp_ppo`` in ``len(expected)`` processes on
     the one card, joined by gloo over 127.0.0.1, ``--tp`` of them to a tp
     group, against one process stepping the whole batch: ``one``, that
     run's result when a step made it already (same arguments and seed),
     else it runs while the processes start, which wait, once in their
     world, for it to end. The processes are killed on failure.
-    ``expected`` is each rank's launches of ``kernel`` while training.
+    ``expected`` is each rank's launches of ``kernel`` while training;
+    ``held`` names ``hold_dp``'s bars; ``launch`` is what each rank's
+    python runs, ``dp_ppo``'s ``main`` on the arguments that follow it.
     Returns (the one-process result, the ranks' results)."""
     from srl_tpu_torch.parallel import dp_ppo
 
@@ -1790,7 +1875,7 @@ def gloo_ranks(torch, argv: list, what: str, card: str, kernel: str, expected: l
         gate = os.path.join(out, "start")
         env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
                    WORLD_SIZE=str(n), GLOO_SOCKET_IFNAME="lo")
-        cmd = [sys.executable, "-m", "srl_tpu_torch.parallel.dp_ppo", *argv, "--backend",
+        cmd = [sys.executable, *launch, *argv, "--backend",
                "gloo", "--timeout", str(int(DP_CHILD_TIMEOUT)), "--out", out,
                "--start-after", gate]
         procs = []
@@ -1822,9 +1907,12 @@ def gloo_ranks(torch, argv: list, what: str, card: str, kernel: str, expected: l
     got = [(r["rank"], r["dp"], r["tp"], r["rows"], r["backend"]) for r in ranks]
     if got != [(r, dp, tp, rows, "gloo") for r in range(n)]:
         raise AssertionError(f"{what}: ranks {got}")
-    if any(r["pg_loss"] != ranks[0]["pg_loss"] or not torch.equal(r["params"], ranks[0]["params"])
+    loss = one["loss_metric"]
+    if any(r[loss] != ranks[0][loss] or not torch.equal(r["params"], ranks[0]["params"])
            for r in ranks):
-        raise AssertionError(f"{what}: the ranks disagree on pg_loss or the parameters")
+        raise AssertionError(f"{what}: the ranks disagree on {loss} or the parameters")
+    if not np.isfinite(ranks[0][loss] + one[loss]).all():
+        raise AssertionError(f"{what}: {loss} {ranks[0][loss]}, one process {one[loss]}")
     for name, want in one["fingerprints"].items():
         # The ranks of a tp group step the same rows.
         if not all(torch.equal(r["fingerprints"][name], ranks[r["rank"] - r["rank"] % tp]
@@ -1834,7 +1922,7 @@ def gloo_ranks(torch, argv: list, what: str, card: str, kernel: str, expected: l
         if not torch.equal(got, want):
             raise AssertionError(f"{what}: the ranks' {name} differ from one process's")
     steps, resets = one["fingerprints"]["done"].shape[0], int(one["fingerprints"]["done"].sum())
-    diff = hold_dp(torch, ranks[0], one, what, own_rows=dp > 1)
+    diff = hold_dp(torch, ranks[0], one, what, own_rows=dp > 1, held=held)
     launches = [r["launches"][kernel] for r in ranks]
     if launches != expected:
         raise AssertionError(f"{what}: {kernel} launched {launches} times, not {expected}")
@@ -1852,6 +1940,76 @@ def gloo_ranks(torch, argv: list, what: str, card: str, kernel: str, expected: l
         + f"; the ranks ran {ranks_s:.1f} s after the gate, {what} "
         f"{time.perf_counter() - t0:.1f} s")
     return one, ranks
+
+
+# Step 15's runs: every other agent whose state shard_ppo_state lays out, at
+# the reference's widths and 256 global envs over two gloo ranks, each
+# agent's default config cut in depth only (n_steps and updates): (run,
+# what, dp_ppo arguments, kernel, the bars hold_dp holds it to). Each rank
+# launches its kernel n_steps x updates times at N=128. ACER's store at 8
+# steps is 50 x 9 x 256 Kuka frames (4.3 GB; 2.2 GB a rank),
+# RecurrentACER's at 4 steps 50 x 5 x 256 MobileRobot frames (9.6 GB; 4.8
+# GB a rank); both replay from their 4th iteration (replay_start 4).
+#
+# A rank's convolutions round its rows otherwise than one process's, and
+# each summation order rounds its own way: the first gradients differ by
+# 0.2-1.2% (1e-5 with the CNN in float32). Adam steps each entry by about lr
+# whatever its size, so an entry's step follows its own relative
+# difference, large for the many small entries, and every later minibatch
+# runs on weights that moved apart: |p_dp - p_one| grows to 5-44% of the
+# update's step with depth, spread over every leaf (15% in float32; PERF.md,
+# section 6). An optimizer that is blind to the gradient's scale
+# cannot see a gradient twice too large either, and 13b's bars let
+# both planted faults through on A2C. So every run holds its first
+# gradients to GRAD_RTOL; the RMSProp agents (A2C, ACER), whose distances
+# stay small, keep 13b's step bar, A2C its curve bar, ACER its first,
+# pre-replay iteration's losses (FIRST_KEYS, the one-update bar; the
+# replayed ones follow Retrace targets that swing by orders of magnitude
+# between iterations).
+DP_KUKA = DP_KUKA_ARGS[:-2] + ["--fingerprint-steps", "16"]
+DP_MOBILE = DP_MOBILE_ARGS[:6] + ["--fingerprint-steps", "16"]
+ADAM_BARS, A2C_BARS, ACER_BARS = ("grad",), ("curve", "step", "grad"), ("first", "step", "grad")
+DP_AGENT_RUNS = [
+    ("15a", "PPO1, Kuka pixels", DP_KUKA + ["--algo", "ppo1", "--n-steps", "16", "--updates",
+                                           "2"], "render3d", ADAM_BARS),
+    ("15b", "A2C, Kuka pixels", DP_KUKA + ["--algo", "a2c", "--n-steps", "5", "--updates",
+                                          "2"], "render3d", A2C_BARS),
+    ("15c", "TRPO, Kuka pixels", DP_KUKA + ["--algo", "trpo", "--n-steps", "16", "--updates",
+                                           "2"], "render3d", ADAM_BARS),
+    ("15d", "PPO2 cnnlstm, MobileRobot 224x224",
+     DP_MOBILE + ["--algo", "ppo2", "--policy", "cnnlstm", "--n-steps", "16", "--updates",
+                  "1"], "render2d", ADAM_BARS),
+    ("15e", "A2C cnnlstm, MobileRobot 224x224",
+     DP_MOBILE + ["--algo", "a2c", "--policy", "cnnlstm", "--n-steps", "5", "--updates", "2"],
+     "render2d", A2C_BARS),
+    ("15f", "ACER, Kuka pixels", DP_KUKA + ["--algo", "acer", "--n-steps", "8", "--updates",
+                                           "5"], "render3d", ACER_BARS),
+    ("15g", "RecurrentACER cnnlstm, MobileRobot 224x224",
+     DP_MOBILE + ["--algo", "acer", "--policy", "cnnlstm", "--n-steps", "4", "--updates", "5"],
+     "render2d", ACER_BARS),
+]
+
+
+def dp_launches(argv: list) -> list:
+    """Each of two ranks' kernel launches while training: n_steps x updates."""
+    return [flag(argv, "--n-steps") * flag(argv, "--updates")] * 2
+
+
+def agent_ranks(torch, card: str) -> dict:
+    """Step 15: each of ``DP_AGENT_RUNS`` on two gloo ranks against one
+    process, then 15h (TRPO, dp1 x tp2) against 15c's one process; returns
+    each run's ranks' results."""
+    out, ones = {}, {}
+    for run, what, argv, kernel, held in DP_AGENT_RUNS:
+        torch.cuda.empty_cache()
+        ones[run], out[run] = gloo_ranks(torch, argv, f"{run} {what}, 2 gloo ranks", card,
+                                         kernel, dp_launches(argv), held=held)
+        if run == "15c":
+            trpo_argv = argv + ["--tp", "2"]
+    torch.cuda.empty_cache()
+    _, out["15h"] = gloo_ranks(torch, trpo_argv, "15h TRPO, Kuka pixels, dp1 x tp2", card,
+                               "render3d", dp_launches(trpo_argv), one=ones["15c"])
+    return out
 
 
 def main() -> int:
@@ -2035,6 +2193,12 @@ def main() -> int:
                    own_rows=False)
     log(f"[tp] 14b against 13c's dp2 x tp1 ranks (the same rows a rank, the weights "
         f"whole there): {diff}; step 14 took {time.perf_counter() - t_step14:.1f} s")
+    t_step15 = time.perf_counter()
+
+    # 15. The other agents on the mesh: PPO1, A2C, TRPO, ACER and the
+    # recurrent PPO2, A2C and ACER.
+    dp_agents = agent_ranks(torch, card)
+    log(f"[dp] step 15 took {time.perf_counter() - t_step15:.1f} s")
     kept.cleanup()
     log(f"[done] {time.perf_counter() - t_start:.1f} s after start-up")
 
@@ -2054,6 +2218,11 @@ def main() -> int:
         "dp_nccl_launches": dp_kuka["init_launches"]["render3d"] + dp_kuka["launches"]["render3d"],
         "dp_mixed_rank0_launches": dp_mixed[0]["launches"]["render3d"],
         "tp_mixed_rank0_launches": tp_mixed[0]["launches"]["render3d"],
+        "dp_ppo1_launches": [r["launches"]["render3d"] for r in dp_agents["15a"]],
+        "dp_a2c_launches": [r["launches"]["render3d"] for r in dp_agents["15b"]],
+        "dp_trpo_launches": [r["launches"]["render3d"] for r in dp_agents["15c"]],
+        "dp_acer_launches": [r["launches"]["render3d"] for r in dp_agents["15f"]],
+        "tp_trpo_launches": [r["launches"]["render3d"] for r in dp_agents["15h"]],
         "max_abs_err": max(r3_err, mb["max_abs_err"]),
         "ms": r3_ms,
         "plain_ms": r3_plain_ms,
@@ -2074,6 +2243,9 @@ def main() -> int:
         "srl_server_launches": srl_server_launches,
         "dp_rank0_launches": dp_mobile[0]["launches"]["render2d"],
         "tp_rank0_launches": tp_mobile[0]["launches"]["render2d"],
+        "dp_lstm_ppo_launches": [r["launches"]["render2d"] for r in dp_agents["15d"]],
+        "dp_lstm_a2c_launches": [r["launches"]["render2d"] for r in dp_agents["15e"]],
+        "dp_lstm_acer_launches": [r["launches"]["render2d"] for r in dp_agents["15g"]],
         "max_abs_err": r2_err,
         "ms": r2_ms,
         "plain_ms": r2_plain_ms,

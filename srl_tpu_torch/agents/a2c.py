@@ -15,6 +15,15 @@ Nature CNN runs on the 112x112 image itself, with no conv1 fold.
 starts) and takes its one full-batch step with backpropagation through time
 over the [T, N] segment from the segment's initial carry, its policy
 pickle named ``"a2c_lstm"``.
+
+On a dp x tp mesh (a state from ``parallel.shard_ppo_state``) a rank steps
+its env rows (and their carry), the draws made for the whole batch; its
+loss terms are its shares of the global means (``base.global_mean``), the
+one gradient of the update is summed over the dp group (one all-reduce of
+the rank's tp shards of it), the clip's norm is global (float64 squares)
+and RMSProp steps the rank's shards of the parameters and of ``nu``; with
+tp > 1 the whole weights are gathered once for the rollout and once for
+the gradient.
 """
 from __future__ import annotations
 
@@ -24,7 +33,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from srl_tpu_torch.agents.base import BaseRLAgent, PPOState, refuse_mesh
+from srl_tpu_torch.agents.base import (BaseRLAgent, PPOState, episode_metrics, global_mean,
+                                       reduce_losses)
 from srl_tpu_torch.agents.common import collect_rollout, compute_gae, explained_variance
 from srl_tpu_torch.agents.ppo import EMPTY_STATE, SCHEDULE_STATE, clip_by_global_norm_
 from srl_tpu_torch.agents.recurrent_ppo import RecurrentPolicyMixin, RecurrentPPOState
@@ -89,50 +99,61 @@ class A2C(BaseRLAgent):
         """(distribution, values) of the batch's observations."""
         return self.apply(params, obs)
 
-    def update(self, params, opt_state, data):
+    def update(self, params, opt_state, data, mesh=None):
         """One full-batch step from the flat batch ``data`` = (obs, actions,
         advantages, returns) (RecurrentA2C: the [T, N] segment, its ``obs``
         the triple (obs, done_in, carry0)): (params', opt_state', losses);
-        the inputs are left as they are."""
+        the inputs are left as they are. With ``mesh``, ``data`` is the
+        rank's env rows and ``params`` and ``opt_state`` its tp shards: the
+        loss terms are the rank's shares of the global means, the gradient is
+        summed over the dp group, and RMSProp steps the shards."""
         obs, *rest = data
         names = list(params)
-        leaves = {k: params[k].detach().requires_grad_(True) for k in names}
+        whole = self.whole_params(params, mesh)
+        leaves = {k: whole[k].detach().requires_grad_(True) for k in names}
         dist, vpred = self._batch_forward(leaves, obs)
-        total, losses = self._objective(dist, vpred, *rest)
+        total, losses = self._objective(dist, vpred, *rest,
+                                        mean=torch.mean if mesh is None else global_mean(mesh))
         grads = dict(zip(names, torch.autograd.grad(total, [leaves[k] for k in names])))
+        grads = self.reduce_grads(grads, mesh)
         params = {k: v.detach().clone() for k, v in params.items()}
         opt_state = {"count": opt_state["count"],
                      "nu": {k: v.clone() for k, v in opt_state["nu"].items()}}
         with torch.no_grad():
-            self.optimizer_step_(params, grads, opt_state)
-        return params, opt_state, losses
+            self.optimizer_step_(params, grads, opt_state, mesh)
+        return params, opt_state, reduce_losses(losses, mesh)
 
-    def _objective(self, dist, vpred, actions, advantages, returns):
+    def _objective(self, dist, vpred, actions, advantages, returns, mean=torch.mean):
         """(the A2C loss, its parts) of the batch's policy outputs, the
-        advantages held constant."""
+        advantages held constant; ``mean`` is a rank's share of a global
+        mean on a mesh."""
         cfg = self.config
-        pg_loss = -torch.mean(advantages.detach() * dist.log_prob(actions))
-        vf_loss = torch.mean(torch.square(vpred - returns))
-        entropy = torch.mean(dist.entropy())
+        pg_loss = -mean(advantages.detach() * dist.log_prob(actions))
+        vf_loss = mean(torch.square(vpred - returns))
+        entropy = mean(dist.entropy())
         total = pg_loss + cfg.vf_coef * vf_loss - cfg.ent_coef * entropy
         return total, {"pg_loss": pg_loss.detach(), "vf_loss": vf_loss.detach(),
                        "entropy": entropy.detach()}
 
-    def optimizer_step_(self, params, grads, opt_state):
+    def optimizer_step_(self, params, grads, opt_state, mesh=None):
         """optax's global-norm clip, then RMSProp, in place on ``params``
-        and ``opt_state``; ``grads`` is consumed."""
+        and ``opt_state``; ``grads`` is consumed. On a tp mesh all three hold
+        the rank's shards."""
         cfg = self.config
-        clip_by_global_norm_(grads, cfg.max_grad_norm)
+        clip_by_global_norm_(grads, cfg.max_grad_norm, mesh, self.sharded_names(mesh))
         rmsprop_update_(params, grads, opt_state, self.learning_rate(opt_state["count"]),
                         cfg.alpha, cfg.epsilon)
 
     def train_iteration(self, state: PPOState, gen: torch.Generator):
-        refuse_mesh(self, state)
+        """One update: the rollout, discounted returns, one full-batch step;
+        on the state's mesh, data-parallel (module docstring)."""
         cfg = self.config
-        policy = lambda obs: self.apply(state.params, obs)
+        mesh = state.mesh
+        whole = self.whole_params(state.params, mesh)
+        policy = lambda obs: self.apply(whole, obs)
         vstate, obs, obs_norm, last_norm_obs, batch = collect_rollout(
             self.vec_env, policy, state.vstate, state.obs, state.obs_norm, gen,
-            cfg.n_steps)
+            cfg.n_steps, mesh=mesh)
         with torch.no_grad():
             _, last_value = policy(last_norm_obs)
         # Discounted returns: GAE with lambda 1.
@@ -141,13 +162,12 @@ class A2C(BaseRLAgent):
         flat = lambda x: x.reshape((-1,) + x.shape[2:])
         params, opt_state, metrics = self.update(
             state.params, state.opt_state,
-            (flat(batch.obs), flat(batch.actions), flat(advantages), flat(returns)))
-        metrics["explained_variance"] = explained_variance(flat(batch.values), flat(returns))
-        metrics["episode_return"] = batch.episode_return
-        metrics["episode_length"] = batch.episode_length
-        metrics["mean_reward_per_step"] = batch.rewards.mean()
+            (flat(batch.obs), flat(batch.actions), flat(advantages), flat(returns)), mesh)
+        metrics["explained_variance"] = explained_variance(flat(batch.values), flat(returns),
+                                                           mesh)
+        metrics.update(episode_metrics(batch, mesh))
         return PPOState(params=params, opt_state=opt_state, vstate=vstate, obs=obs,
-                        obs_norm=obs_norm, update_idx=state.update_idx + 1), metrics
+                        obs_norm=obs_norm, update_idx=state.update_idx + 1, mesh=mesh), metrics
 
     def learn(self, total_timesteps: int, seed: int = 0,
               callback: Optional[Callable] = None) -> PPOState:
@@ -193,19 +213,18 @@ class RecurrentA2C(RecurrentPolicyMixin, A2C):
         return dist, vpred
 
     def train_iteration(self, state: RecurrentPPOState, gen: torch.Generator):
-        refuse_mesh(self, state)
         cfg = self.config
+        mesh = state.mesh
         vstate, obs, done, carry, obs_norm, batch, last_value = self.rollout(state, gen)
         advantages, returns = compute_gae(batch.rewards, batch.values, batch.dones,
                                           last_value, cfg.gamma, 1.0)
         params, opt_state, metrics = self.update(
             state.params, state.opt_state,
-            ((batch.obs, batch.done_in, batch.carry0), batch.actions, advantages, returns))
+            ((batch.obs, batch.done_in, batch.carry0), batch.actions, advantages, returns),
+            mesh)
         metrics["explained_variance"] = explained_variance(batch.values.reshape(-1),
-                                                           returns.reshape(-1))
-        metrics["episode_return"] = batch.episode_return
-        metrics["episode_length"] = batch.episode_length
-        metrics["mean_reward_per_step"] = batch.rewards.mean()
+                                                           returns.reshape(-1), mesh)
+        metrics.update(episode_metrics(batch, mesh))
         return RecurrentPPOState(params=params, opt_state=opt_state, vstate=vstate,
                                  obs=obs, done=done, lstm_state=carry, obs_norm=obs_norm,
-                                 update_idx=state.update_idx + 1), metrics
+                                 update_idx=state.update_idx + 1, mesh=mesh), metrics

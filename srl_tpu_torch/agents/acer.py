@@ -46,6 +46,16 @@ of logits plus Gumbel noise) and the replays' segment indices, so a test
 gives the ones the reference drew from its keys. ``size`` and ``cursor`` of
 the buffer are host ints: deciding on the replays waits for nothing.
 
+On a dp x tp mesh (a state from ``parallel.shard_ppo_state``) a rank steps
+its env rows and keeps their rows of every stored segment (the store's env
+axis: half the store a rank on dp2); the Gumbel noise is drawn for the
+whole batch, the replay indices once for the world (every rank's store
+holds as many segments, so the replays start on the same iteration); the
+Retrace terms and the distribution-space gradients are the rank's rows, the
+losses its shares of the global means, and each update's gradient is
+summed over the dp group; RMSProp and the average policy's EMA step the
+rank's tp shards.
+
 ``learn`` takes no ``initial_state``: the reference's does not, so
 ``--resume`` is refused for these agents. The checkpoint holds the whole
 state, the segment buffer too (at the Kuka pixel run's width, 50 x 21 x
@@ -54,6 +64,7 @@ state, the segment buffer too (at the Kuka pixel run's width, 50 x 21 x
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import Dict, Optional
 
 import numpy as np
@@ -64,7 +75,8 @@ from torch.func import functional_call
 
 from srl_tpu_torch import bridge
 from srl_tpu_torch.agents.a2c import RMS_STATE
-from srl_tpu_torch.agents.base import BaseRLAgent, RecurrentActing, refuse_mesh
+from srl_tpu_torch.agents.base import (BaseRLAgent, RecurrentActing, episode_metrics,
+                                       global_mean, reduce_losses)
 from srl_tpu_torch.agents.buffers import DeviceStore, torch_dtype
 from srl_tpu_torch.agents.ppo import EMPTY_STATE, clip_by_global_norm_
 from srl_tpu_torch.bridge import Record
@@ -151,6 +163,16 @@ class _SegmentStore(DeviceStore):
         return {name: getattr(self, name).index_select(0, idx)[0]
                 for name in self.tensor_names()}
 
+    # The env axis of each field: [C, T(+1), N, ...], the carries [C, N, H].
+    ENV_AXIS = {"lstm_c": 1, "lstm_h": 1}
+
+    def env_rows(self, lo: int, hi: int) -> "_SegmentStore":
+        """A store of env rows ``[lo, hi)`` of every stored segment (copied:
+        the whole store can then be freed), the cursor and size kept."""
+        return dataclasses.replace(self, **{
+            name: getattr(self, name).narrow(self.ENV_AXIS.get(name, 2), lo, hi - lo)
+            .contiguous() for name in self.tensor_names()})
+
 
 def _zeros(shape, dtype, device):
     return torch.zeros(shape, dtype=torch_dtype(dtype), device=device)
@@ -220,6 +242,9 @@ class ACERState:
     obs: Optional[torch.Tensor]
     obs_norm: Optional[RunningNorm]
     update_idx: int = 0
+    # The mesh the state is laid out on (``parallel.shard_ppo_state``: the
+    # rank's env rows, the segment store's too), else None.
+    mesh: Optional[object] = None
 
 
 @dataclasses.dataclass
@@ -237,6 +262,7 @@ class RecurrentACERState:
     lstm_state: Optional[tuple]
     obs_norm: Optional[RunningNorm]
     update_idx: int = 0
+    mesh: Optional[object] = None
 
 
 # ---------------------------------------------------------------------------
@@ -247,7 +273,7 @@ def _take(x, actions):
 
 
 def acer_logit_grads(logits, q, avg_logits, actions, rewards, dones, mus,
-                     config: ACERConfig, losses: Optional[dict] = None):
+                     config: ACERConfig, losses: Optional[dict] = None, mean=torch.mean):
     """ACER's gradients with respect to ``logits`` and ``q`` [T+1, N, A] of
     one segment (``actions``, ``rewards``, ``dones`` [T, N], ``mus`` [T, N,
     A]; ``avg_logits`` the average policy's): the Retrace targets
@@ -259,7 +285,8 @@ def acer_logit_grads(logits, q, avg_logits, actions, rewards, dones, mus,
     the Q loss ``q`` only; each reaches the other input only through a
     stopped gradient. Returns (g_logits, g_q), the bootstrap row T of
     ``g_logits`` zero; ``losses``, when a dict, receives the detached loss
-    terms."""
+    terms. ``mean`` takes the means over [T, N]: on a mesh, a rank's share
+    of the global mean (``base.global_mean``)."""
     cfg = config
     T = actions.shape[0]
     lg = logits.detach().requires_grad_(True)
@@ -292,9 +319,9 @@ def acer_logit_grads(logits, q, avg_logits, actions, rewards, dones, mus,
                 1.0 - cfg.correction_term / (rho_all + 1e-6), 0.0)
         gain_f = torch.log(f_a + 1e-6) * gain_weight
         gain_bc = torch.sum(torch.log(f + 1e-6) * bc_weight, -1)
-        loss_policy = -torch.mean(gain_f + gain_bc)
-        entropy = -torch.mean(torch.sum(f * torch.log(f + 1e-6), -1))
-        loss_q = 0.5 * torch.mean(torch.square(q_ret - q_a))
+        loss_policy = -mean(gain_f + gain_bc)
+        entropy = -mean(torch.sum(f * torch.log(f + 1e-6), -1))
+        loss_q = 0.5 * mean(torch.square(q_ret - q_a))
         (g_logits,) = torch.autograd.grad(loss_policy - cfg.ent_coef * entropy, lg)
         (g_q,) = torch.autograd.grad(loss_q, qv)
     if losses is not None:
@@ -359,36 +386,41 @@ class ACER(BaseRLAgent):
         return logits.reshape(t1, n, -1), q.reshape(t1, n, -1)
 
     # ---- an update -----------------------------------------------------------
-    def segment_grads(self, params, avg_params, seg: dict,
-                      losses: Optional[dict] = None) -> Dict[str, torch.Tensor]:
-        """The ACER gradient of one segment with respect to ``params``: one
-        forward with grad, the average policy's logits without, the
-        distribution-space gradients, one backward (the Q part times
-        ``q_coef``)."""
+    def segment_grads(self, params, avg_params, seg: dict, losses: Optional[dict] = None,
+                      mesh=None) -> Dict[str, torch.Tensor]:
+        """The ACER gradient of one segment with respect to ``params`` (whole
+        parameters): one forward with grad, the average policy's logits
+        without, the distribution-space gradients, one backward (the Q part
+        times ``q_coef``). With ``mesh``, ``seg`` holds the rank's env rows
+        and the gradient is the rank's share of the global one."""
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         logits, q = self.segment_outputs(leaves, seg)
         with torch.no_grad():
             avg_logits, _ = self.segment_outputs(avg_params, seg)
         g_logits, g_q = acer_logit_grads(logits.detach(), q.detach(), avg_logits,
                                          seg["actions"], seg["rewards"], seg["dones"],
-                                         seg["mus"], self.config, losses)
+                                         seg["mus"], self.config, losses,
+                                         torch.mean if mesh is None else global_mean(mesh))
         grads = torch.autograd.grad((logits, q), list(leaves.values()),
                                     (g_logits, g_q * self.config.q_coef))
         return dict(zip(leaves, grads))
 
-    def optimizer_step_(self, params, grads, opt_state):
+    def optimizer_step_(self, params, grads, opt_state, mesh=None):
         """optax's global-norm clip, then RMSProp, in place on ``params`` and
-        ``opt_state``; ``grads`` is consumed."""
+        ``opt_state``; ``grads`` is consumed. On a tp mesh all three hold the
+        rank's shards."""
         cfg = self.config
-        clip_by_global_norm_(grads, cfg.max_grad_norm)
+        clip_by_global_norm_(grads, cfg.max_grad_norm, mesh, self.sharded_names(mesh))
         rmsprop_update_(params, grads, opt_state, cfg.learning_rate, cfg.rprop_alpha,
                         cfg.rprop_epsilon)
 
-    def update_(self, params, opt_state, avg_params, seg: dict, losses=None):
+    def update_(self, params, opt_state, avg_params, seg: dict, losses=None, mesh=None):
         """One ACER update from one segment, in place on ``params`` and
-        ``opt_state``."""
-        grads = self.segment_grads(params, avg_params, seg, losses)
-        self.optimizer_step_(params, grads, opt_state)
+        ``opt_state`` (on a mesh: the rank's shards, the gradient summed over
+        the dp group); ``avg_params`` is whole."""
+        grads = self.segment_grads(self.whole_params(params, mesh), avg_params, seg, losses,
+                                   mesh)
+        self.optimizer_step_(params, self.reduce_grads(grads, mesh), opt_state, mesh)
 
     # ---- an iteration -------------------------------------------------------
     @torch.no_grad()
@@ -398,22 +430,27 @@ class ACER(BaseRLAgent):
         [n_steps, N, A] gives it. Returns (vstate', obs', obs_norm', done',
         carry', the segment as the buffer stores it, episode returns and
         lengths [T, N]); done' and carry' are None for the feed-forward
-        agent."""
-        vstate, obs, obs_norm = state.vstate, state.obs, state.obs_norm
+        agent. On the state's mesh the draws (and ``gumbel``) are the whole
+        batch's, of which the rank keeps its rows."""
+        vstate, obs, obs_norm, mesh = state.vstate, state.obs, state.obs_norm, state.mesh
         done, carry = getattr(state, "done", None), getattr(state, "lstm_state", None)
+        n = self.num_envs
+        lo, hi = (0, n) if mesh is None else mesh.env_slice(n)
+        rows = None if mesh is None else (lo, n)
+        params = self.whole_params(state.params, mesh)
         carry0 = carry
         steps = []
         for t in range(self.config.n_steps):
             if obs_norm is not None:
-                obs_norm = obs_norm.update(obs)
+                obs_norm = obs_norm.update(obs, mesh)
                 norm_obs = obs_norm.normalize(obs)
             else:
                 norm_obs = obs
-            logits, carry = self._act_logits(state.params, norm_obs, carry, done)
+            logits, carry = self._act_logits(params, norm_obs, carry, done)
             dist = Categorical(logits)
-            action = (dist.sample(gen) if gumbel is None
-                      else torch.argmax(logits + torch.as_tensor(gumbel[t]).to(logits), -1))
-            vstate, tr = self.vec_env.step(vstate, action, gen)
+            action = (dist.sample(gen, rows) if gumbel is None else torch.argmax(
+                logits + torch.as_tensor(gumbel[t][lo:hi]).to(logits), -1))
+            vstate, tr = self.vec_env.step(vstate, action, gen, mesh=mesh)
             steps.append((norm_obs, done, action.to(torch.int32), tr.reward, tr.done,
                           dist.probs(), tr.episode_return, tr.episode_length))
             obs, done = tr.obs, tr.done
@@ -432,17 +469,27 @@ class ACER(BaseRLAgent):
         """One iteration (module docstring). ``gumbel`` [n_steps, N, A] and
         ``replay_idx`` [replay_ratio], when given, replace the draws from
         ``gen``. The buffer is updated in place; the parameters and
-        optimizer state are new."""
-        refuse_mesh(self, state)
+        optimizer state are new.
+
+        On the state's mesh (``parallel.shard_ppo_state``) the rank steps,
+        stores and updates from its env rows: each update's loss terms are
+        its shares of the global means, the gradient is summed over the dp
+        group and RMSProp and the average policy's EMA step the rank's tp
+        shards. Every rank adds one segment an iteration, so the store's
+        host-int size, the replay decision and the replay indices (drawn from
+        the generator all ranks seed alike) agree on every rank."""
         cfg = self.config
+        mesh = state.mesh
         vstate, obs, obs_norm, done, carry, seg, ep_ret, ep_len = self.rollout(
             state, gen, gumbel)
         buffer = state.buffer.add(**seg)
         params = {k: v.detach().clone() for k, v in state.params.items()}
         opt_state = {"count": state.opt_state["count"],
                      "nu": {k: v.clone() for k, v in state.opt_state["nu"].items()}}
+        # Every update of the iteration is against its start's average policy.
+        avg_whole = self.whole_params(state.avg_params, mesh)
         losses = {}
-        self.update_(params, opt_state, state.avg_params, seg, losses)
+        self.update_(params, opt_state, avg_whole, seg, losses, mesh)
         replays = 0
         if buffer.size >= cfg.replay_start:
             if replay_idx is None:
@@ -450,18 +497,19 @@ class ACER(BaseRLAgent):
                                            generator=gen, device=gen.device)
             replay_idx = torch.as_tensor(replay_idx, device=self.device).long()
             for i in range(cfg.replay_ratio):
-                self.update_(params, opt_state, state.avg_params,
-                             buffer.segment(replay_idx[i:i + 1]))
+                self.update_(params, opt_state, avg_whole,
+                             buffer.segment(replay_idx[i:i + 1]), mesh=mesh)
             replays = cfg.replay_ratio
         with torch.no_grad():
             avg_params = {k: cfg.alpha * a + (1 - cfg.alpha) * params[k]
                           for k, a in state.avg_params.items()}
-        metrics = {**losses, "replays": torch.tensor(float(replays)),
-                   "episode_return": ep_ret, "episode_length": ep_len,
-                   "mean_reward_per_step": seg["rewards"].mean()}
+        episodes = types.SimpleNamespace(episode_return=ep_ret, episode_length=ep_len,
+                                         rewards=seg["rewards"])
+        metrics = {**reduce_losses(losses, mesh), "replays": torch.tensor(float(replays)),
+                   **episode_metrics(episodes, mesh)}
         fields = dict(params=params, avg_params=avg_params, opt_state=opt_state, buffer=buffer,
                       vstate=vstate, obs=obs, obs_norm=obs_norm,
-                      update_idx=state.update_idx + 1)
+                      update_idx=state.update_idx + 1, mesh=mesh)
         if done is not None:
             fields.update(done=done, lstm_state=carry)
         return type(state)(**fields), metrics
@@ -501,6 +549,7 @@ class ACER(BaseRLAgent):
         return Record("srl_tpu.agents.acer.ACERState", self._common_reference_fields(s))
 
     def _common_reference_fields(self, s) -> dict:
+        s = self.whole_state(s)
         return {
             "params": self._flax(s.params),
             "avg_params": self._flax(s.avg_params),

@@ -26,7 +26,7 @@ from srl_tpu_torch.core.env import VecEnv, VecEnvState
 from srl_tpu_torch.core.normalize import RunningNorm
 from srl_tpu_torch.core.spaces import Discrete
 from srl_tpu_torch.models.policies import ActorCritic, make_policy
-from srl_tpu_torch.parallel.mesh import gather_params
+from srl_tpu_torch.parallel.mesh import gather_params, shard_params, tp_sharded
 
 
 def as_tensor_on(x, device) -> torch.Tensor:
@@ -49,17 +49,49 @@ class PPOState:
     obs: Optional[torch.Tensor]
     obs_norm: Optional[RunningNorm]
     update_idx: int = 0
-    # The dp x tp mesh the state is laid out on (``parallel.shard_ppo_state``:
-    # PPO2 only), else None. With tp > 1, ``params`` and Adam's ``mu`` and
-    # ``nu`` hold the rank's shards (``BaseRLAgent.whole_state``).
+    # The dp x tp mesh the state is laid out on (``parallel.shard_ppo_state``),
+    # else None. With tp > 1, ``params`` and the optimizer's moments hold the
+    # rank's shards (``BaseRLAgent.whole_state``).
     mesh: Optional[object] = None
 
 
 def refuse_mesh(agent, state) -> None:
-    """Only PPO2 trains a state laid out on a mesh, as in the reference."""
+    """Refuse a meshed state to an agent whose state the reference's
+    ``shard_ppo_state`` cannot lay out (ACKTR, DQN, SAC, DDPG, ...)."""
     if getattr(state, "mesh", None) is not None:
-        raise ValueError(f"{type(agent).__name__} does not train data-parallel: only PPO2 "
-                         f"(feed-forward) takes a state from parallel.shard_ppo_state")
+        raise ValueError(f"{type(agent).__name__} does not train on a mesh: the reference's "
+                         f"shard_ppo_state cannot lay out its state")
+
+
+def global_mean(mesh) -> Callable:
+    """A rank's share of the mean over the dp group of tensors that hold
+    the same number of entries on every rank: its sum over the global
+    count. The shares of the ranks sum to the global mean. On one dp rank
+    (a tp group alone) the mean itself, rounded as one process rounds it."""
+    if mesh.dp == 1:
+        return torch.mean
+    return lambda x: x.sum() / (x.numel() * mesh.dp)
+
+
+def episode_metrics(batch, mesh=None) -> dict:
+    """The episode statistics [T, N] of a rollout and its mean reward per
+    step: on a mesh, gathered over the dp group along the env axis and
+    averaged over it."""
+    if mesh is None:
+        return {"episode_return": batch.episode_return,
+                "episode_length": batch.episode_length,
+                "mean_reward_per_step": batch.rewards.mean()}
+    return {"episode_return": mesh.all_gather(batch.episode_return, 1),
+            "episode_length": mesh.all_gather(batch.episode_length, 1),
+            "mean_reward_per_step": mesh.mean(batch.rewards)}
+
+
+def reduce_losses(losses: dict, mesh) -> dict:
+    """The ranks' shares of the loss terms (``global_mean``) summed over the
+    dp group: the global terms (one all-reduce)."""
+    if mesh is None:
+        return losses
+    return dict(zip(losses, mesh.all_reduce_(torch.stack(list(losses.values())))))
 
 
 class BaseRLAgent:
@@ -72,6 +104,11 @@ class BaseRLAgent:
     LOG_INTERVAL = 10
     SAVE_INTERVAL = 1
     config_class = None
+    # A dict where the first gradient each site hands on is kept (flat,
+    # float32, on the host): ``"grads"`` (the optimizer's, after the dp
+    # reduction) and TRPO's ``"surrogate"``; ``parallel.dp_ppo`` holds a dp
+    # run's against one process's. None: nothing is kept.
+    grad_probe: Optional[dict] = None
 
     def __init__(self):
         self.state = None
@@ -115,15 +152,43 @@ class BaseRLAgent:
         return gather_params(params, mesh, self.param_shapes())
 
     def whole_state(self, s):
-        """``s`` with its parameters and Adam's moments whole (gathered over
-        the tp group where ``s`` is laid out on a mesh with tp > 1)."""
+        """``s`` with its parameters, the optimizer's moments and ACER's
+        average policy whole (gathered over the tp group where ``s`` is laid
+        out on a mesh with tp > 1)."""
         mesh = getattr(s, "mesh", None)
         if mesh is None or mesh.tp == 1:
             return s
-        opt = s.opt_state
-        return dataclasses.replace(s, params=self.whole_params(s.params, mesh), opt_state={
-            **opt, "mu": self.whole_params(opt["mu"], mesh),
-            "nu": self.whole_params(opt["nu"], mesh)})
+        whole = lambda tree: self.whole_params(tree, mesh)
+        fields = {"params": whole(s.params), "opt_state": {
+            k: whole(v) if isinstance(v, dict) else v for k, v in s.opt_state.items()}}
+        if hasattr(s, "avg_params"):
+            fields["avg_params"] = whole(s.avg_params)
+        return dataclasses.replace(s, **fields)
+
+    def sharded_names(self, mesh) -> set:
+        """The parameters a rank of ``mesh`` holds a tp shard of."""
+        if mesh is None:
+            return set()
+        return {k for k, shape in self.param_shapes().items() if tp_sharded(shape, mesh.tp)}
+
+    def reduce_grads(self, grads: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+        """The whole gradients of a rank's loss share, each cut to the rank's
+        tp shard and summed over the dp group (one all-reduce of the flat
+        shards): the ranks of a dp group get the same gradients."""
+        if mesh is not None:
+            grads = shard_params(grads, mesh)
+            flat = mesh.all_reduce_(torch.cat([g.reshape(-1) for g in grads.values()]))
+            grads = {k: f.view_as(g) for (k, g), f in
+                     zip(grads.items(), torch.split(flat, [g.numel() for g in grads.values()]))}
+        self.note_grads(grads.values())
+        return grads
+
+    def note_grads(self, grads, site: str = "grads") -> None:
+        """Keep ``grads`` (tensors) flat in ``grad_probe`` if they are the
+        first ``site`` has handed on."""
+        if self.grad_probe is not None and site not in self.grad_probe:
+            self.grad_probe[site] = torch.cat([g.detach().reshape(-1).float()
+                                               for g in grads]).cpu()
 
     def init_params(self, seed: int) -> Dict[str, torch.Tensor]:
         """Fresh orthogonal-init parameters drawn from ``seed``."""
@@ -422,7 +487,8 @@ class RecurrentActing:
         obs = as_tensor_on(observation, self.device)
         if self.state.obs_norm is not None:
             obs = self.state.obs_norm.normalize(obs)
-        return self._policy_step(self.state.params, obs, carry, done)
+        params = self.whole_params(self.state.params, getattr(self.state, "mesh", None))
+        return self._policy_step(params, obs, carry, done)
 
     def _zero_context(self, n: int):
         zeros = torch.zeros((n, self.n_lstm), dtype=torch.float32, device=self.device)

@@ -106,24 +106,28 @@ def collect_recurrent_rollout(
     obs_norm: Optional[RunningNorm],
     gen: torch.Generator,
     n_steps: int,
+    mesh=None,
 ):
     """``collect_rollout`` for a recurrent policy: ``policy(obs, carry,
     done)`` returns (distribution, value, carry'), ``done`` [N] masks the
     carry at episode starts. Returns (vstate', last_obs, done', carry',
-    obs_norm', last_norm_obs, batch)."""
+    obs_norm', last_norm_obs, batch). With ``mesh``, ``vstate``, ``obs``,
+    ``done`` and the carry hold the rank's env rows, as in
+    ``collect_rollout``."""
+    rows = None if mesh is None else (mesh.env_slice(vec_env.num_envs)[0], vec_env.num_envs)
     carry0 = carry
     observed, steps = [], []
     for _ in range(n_steps):
         if obs_norm is not None:
-            obs_norm = obs_norm.update(obs)
+            obs_norm = obs_norm.update(obs, mesh)
             norm_obs = obs_norm.normalize(obs)
         else:
             norm_obs = obs
         dist, value, carry = policy(norm_obs, carry, done)
-        action = dist.sample(gen)
+        action = dist.sample(gen, rows)
         observed.append(norm_obs)
         done_in = done
-        vstate, tr = vec_env.step(vstate, action, gen)
+        vstate, tr = vec_env.step(vstate, action, gen, mesh=mesh)
         steps.append((action, dist.log_prob(action), value, tr.reward, tr.done,
                       tr.episode_return, tr.episode_length, done_in))
         obs, done = tr.obs, tr.done

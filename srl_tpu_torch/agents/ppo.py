@@ -64,14 +64,13 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from srl_tpu_torch.agents.base import BaseRLAgent, PPOState, refuse_mesh
+from srl_tpu_torch.agents.base import BaseRLAgent, PPOState, episode_metrics
 from srl_tpu_torch.agents.common import collect_rollout, compute_gae, explained_variance
 from srl_tpu_torch.bridge import Record
 from srl_tpu_torch.core.device import resolve_device
 from srl_tpu_torch.core.env import state_map
 from srl_tpu_torch.core.frame_stack import FrameStack
 from srl_tpu_torch.core.optim import adam_init, adam_update_
-from srl_tpu_torch.parallel.mesh import shard_params, tp_sharded
 
 EMPTY_STATE = "optax._src.base.EmptyState"
 ADAM_STATE = "optax._src.transform.ScaleByAdamState"
@@ -133,6 +132,8 @@ class PPO2(BaseRLAgent):
     LOG_INTERVAL = 10
     SAVE_INTERVAL = 1
     config_class = PPOConfig
+    # The loss parts of a minibatch, in the order the ranks reduce them.
+    aux_keys = ("pg_loss", "vf_loss", "entropy", "approx_kl", "clip_frac")
 
     def __init__(self, env=None, num_envs: int = 16, policy: str = "auto",
                  config: PPOConfig = None, normalize_obs: Optional[bool] = None,
@@ -188,9 +189,7 @@ class PPO2(BaseRLAgent):
         fc512 weight alone is 19M floats.) On a tp mesh all three hold the
         rank's shards."""
         cfg = self.config
-        sharded = () if mesh is None else {k for k, shape in self.param_shapes().items()
-                                           if tp_sharded(shape, mesh.tp)}
-        clip_by_global_norm_(grads, cfg.max_grad_norm, mesh, sharded)
+        clip_by_global_norm_(grads, cfg.max_grad_norm, mesh, self.sharded_names(mesh))
         adam_update_(params, grads, opt_state, self.learning_rate(opt_state["count"]),
                      cfg.adam_eps)
 
@@ -310,6 +309,7 @@ class PPO2(BaseRLAgent):
                 if mesh is None:
                     loss, aux = self._loss(leaves, self._minibatch(data, idx), cfg.cliprange)
                     grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+                    self.note_grads(grads)
                 else:
                     grads, aux = self._shard_grads(leaves, data, idx, mesh)
                 with torch.no_grad():
@@ -333,22 +333,16 @@ class PPO2(BaseRLAgent):
         loss, aux = self._shard_loss(leaves, data, idx, mesh)
         if loss is None:
             grads = [torch.zeros_like(v) for v in leaves.values()]
-            aux = dict.fromkeys(("pg_loss", "vf_loss", "entropy", "approx_kl", "clip_frac"),
-                                torch.zeros((), device=idx.device))
+            aux = dict.fromkeys(self.aux_keys, torch.zeros((), device=idx.device))
         else:
             grads = torch.autograd.grad(loss, [leaves[k] for k in names])
-        grads = list(shard_params(dict(zip(names, grads)), mesh).values())
-        flat = mesh.all_reduce_(torch.cat([g.reshape(-1) for g in grads]))
-        return [f.view_as(g) for f, g in zip(torch.split(flat, [g.numel() for g in grads]),
-                                             grads)], aux
+        return list(self.reduce_grads(dict(zip(names, grads)), mesh).values()), aux
 
     def train_iteration(self, state: PPOState, gen: torch.Generator):
         """One PPO update: rollout, GAE, shuffled minibatch epochs; on the
         state's mesh, data-parallel (module docstring)."""
         cfg = self.config
         mesh = state.mesh
-        if mesh is not None and type(self) is not PPO2:
-            refuse_mesh(self, state)
         # The parameters do not change during the rollout: one gather.
         whole = self.whole_params(state.params, mesh)
         policy = lambda obs: self.apply(whole, obs)
@@ -372,14 +366,7 @@ class PPO2(BaseRLAgent):
         params, opt_state, metrics = self.update_epochs(
             state.params, state.opt_state, data, perms, mesh)
         metrics["explained_variance"] = explained_variance(data[3], data[5], mesh)
-        if mesh is None:
-            metrics["episode_return"] = batch.episode_return
-            metrics["episode_length"] = batch.episode_length
-            metrics["mean_reward_per_step"] = batch.rewards.mean()
-        else:
-            metrics["episode_return"] = mesh.all_gather(batch.episode_return, 1)
-            metrics["episode_length"] = mesh.all_gather(batch.episode_length, 1)
-            metrics["mean_reward_per_step"] = mesh.mean(batch.rewards)
+        metrics.update(episode_metrics(batch, mesh))
         new_state = PPOState(params=params, opt_state=opt_state, vstate=vstate,
                              obs=obs, obs_norm=obs_norm, update_idx=state.update_idx + 1,
                              mesh=mesh)

@@ -1,7 +1,11 @@
 """PPO1 (counterpart of srl_tpu/agents/ppo1.py): PPO2's machinery with
 stable-baselines PPO1's defaults (256 steps per actor batch, clip 0.2,
 ent_coef 0.01, 4 optim epochs, Adam 1e-3 linearly annealed, minibatch 64 at
-256 steps, gamma 0.99, lam 0.95)."""
+256 steps, gamma 0.99, lam 0.95).
+
+The original's MPI gradient averaging is PPO2's dp mesh: a state from
+``parallel.shard_ppo_state`` trains over the ranks of its mesh as PPO2's
+does (``agents/ppo.py``), the lr anneal included."""
 from __future__ import annotations
 
 from srl_tpu_torch.agents.ppo import PPO2, PPOConfig

@@ -20,6 +20,16 @@ the policy, its bridge to the reference's tree, the state with its carry,
 checkpoints as the reference's ``RecurrentPPOState`` and the stateful
 acting. Their ``learn`` takes no ``initial_state``: the reference's does
 not, so ``--resume`` is refused for them as there.
+
+On a dp x tp mesh (a state from ``parallel.shard_ppo_state``: the rank's env
+rows of the batch, of ``done`` and of the carry) the rollout draws for the
+whole batch (``collect_recurrent_rollout(mesh=)``); each epoch permutes the
+global env columns, and a rank computes the loss terms of the columns of
+each minibatch it holds, each from its stored carry over the T steps, as
+shares of the global minibatch's means with the advantages normalized by
+the global moments; the gradients are summed over the dp group (a rank that
+holds none of a minibatch's columns adds zeros and still joins every
+all-reduce): PPO2's ``_shard_loss`` / ``_shard_grads`` over env columns.
 """
 from __future__ import annotations
 
@@ -30,7 +40,7 @@ import numpy as np
 import torch
 
 from srl_tpu_torch import bridge
-from srl_tpu_torch.agents.base import BaseRLAgent, RecurrentActing, refuse_mesh
+from srl_tpu_torch.agents.base import BaseRLAgent, RecurrentActing, episode_metrics
 from srl_tpu_torch.agents.common import (collect_recurrent_rollout, compute_gae,
                                          explained_variance)
 from srl_tpu_torch.agents.ppo import PPO2, PPOConfig
@@ -61,6 +71,9 @@ class RecurrentPPOState:
     lstm_state: Optional[tuple]
     obs_norm: object
     update_idx: int = 0
+    # The mesh the state is laid out on (``parallel.shard_ppo_state``: the
+    # rank's rows of the env batch, ``done`` and the carry), else None.
+    mesh: Optional[object] = None
 
 
 class RecurrentPolicyMixin(RecurrentActing):
@@ -101,15 +114,17 @@ class RecurrentPolicyMixin(RecurrentActing):
     def rollout(self, state: RecurrentPPOState, gen: torch.Generator):
         """The segment of ``n_steps`` and the values after it: (vstate',
         obs', done', carry', obs_norm', batch, last_value)."""
-        policy = lambda obs, carry, done: self.apply(state.params, obs, carry, done)
+        whole = self.whole_params(state.params, state.mesh)
+        policy = lambda obs, carry, done: self.apply(whole, obs, carry, done)
         vstate, obs, done, carry, obs_norm, last_norm_obs, batch = collect_recurrent_rollout(
             self.vec_env, policy, state.vstate, state.obs, state.done, state.lstm_state,
-            state.obs_norm, gen, self.config.n_steps)
+            state.obs_norm, gen, self.config.n_steps, state.mesh)
         with torch.no_grad():
             _, last_value, _ = policy(last_norm_obs, carry, done)
         return vstate, obs, done, carry, obs_norm, batch, last_value
 
     def state_to_reference(self, s: RecurrentPPOState) -> bridge.Record:
+        s = self.whole_state(s)
         return bridge.Record("srl_tpu.agents.recurrent_ppo.RecurrentPPOState", {
             "params": self._flax(s.params),
             "opt_state": self.opt_state_to_reference(s.opt_state),
@@ -130,6 +145,7 @@ class RecurrentPolicyMixin(RecurrentActing):
 class RecurrentPPO2(RecurrentPolicyMixin, PPO2):
     name = "ppo2"  # the same algo, an lstm policy
     pickle_name = "ppo2_lstm"
+    aux_keys = PPO2.aux_keys + ("loss",)
 
     def __init__(self, env=None, num_envs: int = 16, policy: str = "lstm",
                  config: PPOConfig = None, normalize_obs: Optional[bool] = None,
@@ -157,10 +173,33 @@ class RecurrentPPO2(RecurrentPolicyMixin, PPO2):
         aux["loss"] = total.detach()
         return total, aux
 
+    def _shard_loss(self, params, data, idx, mesh):
+        """(loss, parts) of this rank's share of the global minibatch ``idx``
+        of env columns: the columns in the rank's env slice, each run through
+        the T steps from its stored carry, their terms summed and divided by
+        the global minibatch's T x len(idx) entries, the advantages
+        normalized with the global mean and std. (None, None) where the rank
+        owns none of them (it still joins the all-reduces)."""
+        lo, hi = mesh.env_slice(self.num_envs)
+        local = idx[(idx >= lo) & (idx < hi)] - lo
+        segment, *rest = self._minibatch(data, local)
+        adv_mean, adv_var, _ = mesh.moments(rest[3].reshape(-1))
+        if local.numel() == 0:
+            return None, None
+        dist, vpred = self._minibatch_forward(params, segment)
+        count = data[3].shape[0] * idx.shape[0]
+        total, aux = self._objective(dist, vpred, *rest, self.config.cliprange,
+                                     mean=lambda x: x.sum() / count,
+                                     adv_stats=(adv_mean, torch.sqrt(adv_var)))
+        aux["loss"] = total.detach()
+        return total, aux
+
     def train_iteration(self, state: RecurrentPPOState, gen: torch.Generator):
-        """One update: the segment, GAE, the epochs over env columns."""
-        refuse_mesh(self, state)
+        """One update: the segment, GAE, the epochs over env columns; on the
+        state's mesh, each rank computes the columns of each minibatch it
+        holds, and the gradients are summed over the dp group."""
         cfg = self.config
+        mesh = state.mesh
         vstate, obs, done, carry, obs_norm, batch, last_value = self.rollout(state, gen)
         advantages, returns = compute_gae(batch.rewards, batch.values, batch.dones,
                                           last_value, cfg.gamma, cfg.lam)
@@ -170,15 +209,13 @@ class RecurrentPPO2(RecurrentPolicyMixin, PPO2):
             torch.randperm(self.num_envs, generator=gen, device=gen.device)
             for _ in range(cfg.noptepochs)])
         params, opt_state, metrics = self.update_epochs(
-            state.params, state.opt_state, data, env_perms)
+            state.params, state.opt_state, data, env_perms, mesh)
         metrics["explained_variance"] = explained_variance(batch.values.reshape(-1),
-                                                           returns.reshape(-1))
-        metrics["episode_return"] = batch.episode_return
-        metrics["episode_length"] = batch.episode_length
-        metrics["mean_reward_per_step"] = batch.rewards.mean()
+                                                           returns.reshape(-1), mesh)
+        metrics.update(episode_metrics(batch, mesh))
         return RecurrentPPOState(params=params, opt_state=opt_state, vstate=vstate,
                                  obs=obs, done=done, lstm_state=carry, obs_norm=obs_norm,
-                                 update_idx=state.update_idx + 1), metrics
+                                 update_idx=state.update_idx + 1, mesh=mesh), metrics
 
     def learn(self, total_timesteps: int, seed: int = 0,
               callback: Optional[Callable] = None) -> RecurrentPPOState:

@@ -13,9 +13,12 @@ of a mesh in one process).
   is made at the global size from a generator that all ranks seed alike, and
   each rank keeps its rows, so rank ``r`` steps rows ``[lo, hi)`` of the
   one-process run bit for bit (``core/env.py``, ``agents/common.py``).
-  PPO2's update (``agents/ppo.py``) computes the loss terms of the rows each
-  rank owns in every global minibatch and all-reduces them and the gradients
-  with SUM: the one-process step, up to the order of the reductions.
+  Each agent's update computes the loss terms of the rows each rank owns
+  (PPO2's: of every global minibatch) as shares of the global means and
+  all-reduces them and the gradients with SUM: the one-process step, up to
+  the order of the reductions. ``shard_ppo_state`` lays out the state of
+  every agent the reference's does: PPO2, PPO1, A2C, TRPO, ACER and the
+  recurrent PPO2, A2C and ACER.
 * ``tp``, the output features of the weights: a rank keeps its ``1/tp``
   shard of dim 0 of every leaf whose dim 0 divides by tp (``shard_params``;
   the reference's last dim is the port's dim 0), of the parameters and of
@@ -23,7 +26,7 @@ of a mesh in one process).
   where weights live, not what is computed: the ranks of a tp group hold the
   same env rows and step them alike, gather the whole weights before a
   forward (``gather_params``), keep their shard's slice of the gradient and
-  run Adam on their shards only (``agents/ppo.py``).
+  run the optimizer on their shards only (``BaseRLAgent.reduce_grads``).
 
 The data reductions (``all_reduce_``, ``all_gather``, ``mean``,
 ``moments``) go over the rank's dp group, the ranks that share its tp
@@ -295,23 +298,42 @@ def gather_params(params: Dict[str, torch.Tensor], mesh: Mesh,
     return out
 
 
+# The fields the reference's ``shard_ppo_state`` reads (srl_tpu/parallel/
+# mesh.py:76-91; the port's states draw from a generator, not a ``key``).
+PPO_STATE_FIELDS = ("params", "opt_state", "vstate", "obs", "obs_norm", "update_idx")
+
+
 def shard_ppo_state(state, mesh: Mesh):
-    """A PPO2 ``PPOState`` laid out on ``mesh``: this rank's rows of the env
-    batch (the vector env's state and the observations), its tp shards of the
-    parameters and of Adam's ``mu`` and ``nu`` (``shard_params``), Adam's
-    count and the normalizer whole. ``agent.train_iteration`` then trains
-    over the mesh."""
-    from srl_tpu_torch.agents.base import PPOState
+    """A training state laid out on ``mesh``, as the reference's
+    ``shard_ppo_state`` lays out any state with the fields it reads: PPO2's
+    and PPO1's, A2C's and TRPO's ``PPOState``, the recurrent agents'
+    ``RecurrentPPOState``, ``ACERState`` and ``RecurrentACERState``. The
+    rank keeps its rows of the env batch: the vector env's state and the
+    observations, the recurrent states' ``done`` and carry, and ACER's
+    segment store (its env axis, ``env_rows``); and its tp shards of the
+    parameters, of the optimizer's moments and of ACER's average policy
+    (``shard_params``). Counters and the normalizer stay whole.
+    ``agent.train_iteration`` then trains over the mesh. Any other state
+    (ACKTR's, DQN's, SAC's, DDPG's) raises a ValueError: the reference's
+    ``shard_ppo_state`` fails on it with an AttributeError."""
     from srl_tpu_torch.core.env import take_rows
 
-    if type(state) is not PPOState:
-        raise ValueError(f"shard_ppo_state lays out PPO2's PPOState, not "
-                         f"{type(state).__name__}: only PPO2 (feed-forward) trains "
-                         f"data-parallel, as in the reference")
+    missing = [f for f in PPO_STATE_FIELDS + ("mesh",) if not hasattr(state, f)]
+    if missing:
+        raise ValueError(
+            f"shard_ppo_state cannot lay out a {type(state).__name__}: it has no "
+            f"{', '.join(missing)}, and the reference's shard_ppo_state fails on such a "
+            f"state with an AttributeError")
     if state.mesh is not None:
         raise ValueError("the state is laid out on a mesh already")
     lo, hi = mesh.env_slice(state.obs.shape[0])
-    return dataclasses.replace(
-        state, vstate=take_rows(state.vstate, lo, hi), obs=state.obs[lo:hi],
-        params=shard_params(state.params, mesh), opt_state=shard_params(state.opt_state, mesh),
-        mesh=mesh)
+    fields = dict(vstate=take_rows(state.vstate, lo, hi), obs=state.obs[lo:hi],
+                  params=shard_params(state.params, mesh),
+                  opt_state=shard_params(state.opt_state, mesh), mesh=mesh)
+    if hasattr(state, "lstm_state"):
+        fields.update(done=state.done[lo:hi],
+                      lstm_state=tuple(x[lo:hi] for x in state.lstm_state))
+    if hasattr(state, "avg_params"):
+        fields.update(avg_params=shard_params(state.avg_params, mesh),
+                      buffer=state.buffer.env_rows(lo, hi))
+    return dataclasses.replace(state, **fields)

@@ -119,9 +119,10 @@ def reset_noise_of(jenv, vkey, n_steps):
 
 
 def feed_resets(agent, noises):
-    """The port's VecEnv steps with the given auto-reset draws, in order."""
+    """The port's VecEnv steps with the given auto-reset draws, in order
+    (on a mesh: the whole batch's)."""
     step, it = agent.vec_env.step, iter(noises)
-    agent.vec_env.step = lambda vs, a, gen: step(vs, a, gen, reset_noise=next(it))
+    agent.vec_env.step = lambda vs, a, gen, **kw: step(vs, a, gen, reset_noise=next(it), **kw)
 
 
 def gumbel_draws(k_roll, n_act, recurrent=False):

@@ -15,11 +15,14 @@ tests/test_sharding.py and test_distributed_wiring:
   the reference's does (64 envs over 8), and a meshed step of it is the
   one-process step's rows;
 * the normalizer's all-reduced update equals the one-process update of the
-  concatenated batch; every agent but PPO2 is refused a meshed state, and
-  the entry points do not fall back to the CPU.
+  concatenated batch; the agents whose state the reference's
+  ``shard_ppo_state`` cannot lay out (ACKTR, RecurrentACKTR, DQN, SAC,
+  DDPG) are refused a mesh, and the entry points do not fall back to the
+  CPU.
 
 PPO2's update and curves over dp are tests/test_torch_parallel_ppo.py, over
-dp x tp tests/test_torch_tensor_parallel.py.
+dp x tp tests/test_torch_tensor_parallel.py; the other agents' are
+tests/test_torch_parallel_agents.py and _parallel_recurrent.py.
 """
 import dataclasses
 import datetime
@@ -279,28 +282,45 @@ def test_normalizer_update_over_ranks_is_the_concatenated_update():
 
 # ---- what the port refuses ---------------------------------------------------
 
-def test_only_ppo2_trains_a_meshed_state():
-    from srl_tpu_torch.agents.a2c import A2C
-    from srl_tpu_torch.agents.ppo1 import PPO1
-    from srl_tpu_torch.agents.recurrent_ppo import RecurrentPPO2
-    from srl_tpu_torch.agents.trpo import TRPO
+def refused_agent(name):
+    """An agent whose state the reference's shard_ppo_state cannot lay out
+    (it has no ``opt_state``, ``update_idx`` or ``params``)."""
+    from srl_tpu_torch.agents.acktr import ACKTR, RecurrentACKTR
+    from srl_tpu_torch.agents.ddpg import DDPG
+    from srl_tpu_torch.agents.dqn import DQN
+    from srl_tpu_torch.agents.sac import SAC
+
+    cls = {"acktr": ACKTR, "recurrent_acktr": RecurrentACKTR, "dqn": DQN, "sac": SAC,
+           "ddpg": DDPG}[name]
+    env = tm.MobileRobotEnv(is_discrete=name not in ("sac", "ddpg"))
+    return cls(env=env, num_envs=4, device="cpu")
+
+
+REFUSED = {"acktr": "opt_state", "recurrent_acktr": "opt_state", "dqn": "update_idx",
+           "sac": "params", "ddpg": "params"}
+
+
+@pytest.mark.parametrize("name", list(REFUSED))
+def test_agents_the_reference_cannot_lay_out_are_refused(name):
+    agent = refused_agent(name)
+    state = agent.init_state(torch.Generator().manual_seed(0))
 
     def refused(mesh):  # one rank: nothing to serialize
-        gen = torch.Generator().manual_seed(0)
-        for cls in (PPO1, A2C, TRPO):
-            agent = cls(env=tm.MobileRobotEnv(), num_envs=4, device="cpu")
-            state = shard_ppo_state(agent.init_state(gen), mesh)
-            with pytest.raises(ValueError, match=f"{cls.__name__} does not train "
-                                                 f"data-parallel: only PPO2"):
-                agent.train_iteration(state, gen)
-        lstm = RecurrentPPO2(env=tm.MobileRobotEnv(), num_envs=4, policy="lstm",
-                             device="cpu")
-        with pytest.raises(ValueError, match="only PPO2 .feed-forward. trains"):
-            shard_ppo_state(lstm.init_state(gen), mesh)
+        with pytest.raises(ValueError, match=f"cannot lay out a {type(state).__name__}: it "
+                                             f"has no .*{REFUSED[name]}.* the reference's "
+                                             f"shard_ppo_state fails on such a state"):
+            shard_ppo_state(state, mesh)
+        return True
+
+    assert run_ranks(1, refused) == [True]
+
+
+def test_a_state_on_a_mesh_is_not_laid_out_again():
+    def refused(mesh):
+        state = PPO2(env=tm.MobileRobotEnv(), num_envs=4, device="cpu").init_state(
+            torch.Generator().manual_seed(0))
         with pytest.raises(ValueError, match="laid out on a mesh already"):
-            shard_ppo_state(shard_ppo_state(
-                PPO2(env=tm.MobileRobotEnv(), num_envs=4, device="cpu").init_state(gen),
-                mesh), mesh)
+            shard_ppo_state(shard_ppo_state(state, mesh), mesh)
         return True
 
     assert run_ranks(1, refused) == [True]
