@@ -1,0 +1,148 @@
+"""One cell of the benchmark in one process: set-up, the timed window, the
+traced window and the check.
+
+The program under test is ``srl_tpu_torch``: its env is built as the
+training CLI builds it (``experiments/train.make_with_options``), its agent
+class comes from the agent registry, and the window calls the agent's
+``train_iteration`` in a loop, as ``BaseRLAgent._run`` does. The benchmark
+makes the weights from the seed on the device (the reference's layout and
+scales) and hands them to the program through its fine-tuning start
+(``agent.pretrained``)."""
+from __future__ import annotations
+
+import time
+import types
+
+import torch
+
+from reference import nature_cnn
+from reference import vec_env as ref_env
+from record import Recorder
+from tracing import Spans, profiled_update, sync
+
+# Rollout steps whose frames the check compares, besides the first state's.
+FRAME_STEPS = 8
+
+
+def build(cell, device, overrides=None):
+    """The program's agent of ``cell`` (its traffic updated with
+    ``overrides``, for small rehearsals)."""
+    from srl_tpu_torch.agents.registry import resolve_policy_class
+    from srl_tpu_torch.experiments.train import make_with_options
+
+    cfg, traffic = cell.config, {**cell.traffic, **(overrides or {})}
+    cell.traffic = traffic
+    # As the training CLI states it: float32 matmuls and convolutions stay
+    # float32 (the policy's convolutions and fc512 run in bfloat16).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env = make_with_options(cfg["env_id"], cfg["env_options"])
+    cls = resolve_policy_class(cfg["algo"], cfg["policy"])
+    algo = {**cfg["algo_config"], **{k: traffic[k] for k in
+                                     ("n_steps", "nminibatches", "noptepochs")}}
+    agent = cls(env=env, num_envs=traffic["num_envs"], policy=cfg["policy"],
+                config=cls.config_class(**algo), device=device)
+    # The lr anneal's horizon: a run of ``total_timesteps``.
+    agent.n_updates = max(1, cfg["total_timesteps"] // (algo["n_steps"] * traffic["num_envs"]))
+    return agent
+
+
+def weights(cell, agent, seed: int, device) -> dict:
+    """The weights of ``seed``, in the reference's layout, after checking
+    that the program's parameters have those names and shapes."""
+    cfg = cell.config
+    shapes = nature_cnn.param_shapes(agent.obs_shape, agent.env.action_space.n,
+                                     cfg.get("input_scale", 1))
+    program = {k: tuple(v.shape) for k, v in agent.policy.state_dict().items()}
+    if program != shapes or agent.input_scale != cfg.get("input_scale", 1):
+        raise ValueError(f"the program's parameters {program} are not the "
+                         f"reference's {shapes}")
+    return nature_cnn.init_params(shapes, seed, device)
+
+
+def start(agent, params0, seed: int, recorder=None):
+    """The program's first state from ``seed``: its generator, the reset
+    batch and the benchmark's weights."""
+    gen = agent._start(seed)
+    agent.pretrained = types.SimpleNamespace(params=params0, obs_norm=None)
+    state = agent.init_state(gen, seed)
+    agent.pretrained = None
+    if recorder is not None:
+        recorder.note_start(state)
+    return state, gen
+
+
+def frame_steps(seed: int, n_steps: int) -> list:
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    k = min(FRAME_STEPS, n_steps)
+    return sorted(torch.randperm(n_steps, generator=gen)[:k].tolist())
+
+
+def first_update(agent, params0, seed: int, gae):
+    """(state after the first update, its generator, the recorder of it);
+    ``gae``: the config's (module, attribute) of the GAE the update calls."""
+    rec = Recorder(agent, frame_steps(seed, agent.config.n_steps), tuple(gae))
+    with rec:
+        state, gen = start(agent, params0, seed, rec)
+        state, _ = agent.train_iteration(state, gen)
+    if not rec.complete():
+        raise RuntimeError("the first update did not go through the recorded calls")
+    return state, gen, rec
+
+
+def window(agent, state, gen, seconds: float, device):
+    """Whole updates until ``seconds`` have passed, then a synchronise:
+    (state, updates, seconds from the start to the end of the last, the
+    host's time at the end of each update from the start, for a look: the
+    update's own synchronisations keep the host close behind the device)."""
+    sync(device)
+    marks = []
+    t0 = time.perf_counter()
+    updates = 0
+    while True:
+        state, _ = agent.train_iteration(state, gen)
+        updates += 1
+        elapsed = time.perf_counter() - t0
+        marks.append(elapsed)
+        if elapsed >= seconds:
+            break
+    sync(device)
+    return state, updates, time.perf_counter() - t0, marks
+
+
+def check_updates_cap(cell) -> int:
+    """Updates in which every env ends an episode at least once, wherever
+    they start: the reference env's longest episode in updates."""
+    env = ref_env.make_env(cell.config["env_id"], cell.config["env_options"])
+    return -(-(env.max_steps + 1) // cell.traffic["n_steps"])
+
+
+def check_update(agent, state, gen, gae, cap: int):
+    """(state, the record of the first update after the window in which an
+    episode ended, the updates run): recorded updates of the program's own
+    state, at most ``cap``; the last one's record where none held an end."""
+    for k in range(1, cap + 1):
+        rec = Recorder(agent, FRAME_STEPS, tuple(gae), rollout_only=True)
+        with rec:
+            rec.note_start(state)
+            state, _ = agent.train_iteration(state, gen)
+        if not rec.complete():
+            raise RuntimeError("the update after the window did not go through the "
+                               "recorded calls")
+        if rec.dones():
+            break
+    return state, rec, k
+
+
+def profiled(agent, state, gen, spans: dict, device):
+    """(state, profile) of one update under ``torch.profiler``, with the
+    benchmark's spans marking the layers in the trace."""
+    holder = {"state": state}
+
+    def one_update():
+        holder["state"], _ = agent.train_iteration(holder["state"], gen)
+
+    with Spans(agent, spans, device):
+        profile = profiled_update(one_update, device)
+    return holder["state"], profile

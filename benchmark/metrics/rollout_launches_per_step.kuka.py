@@ -1,0 +1,7 @@
+"""``rollout_launches_per_step``, in the cells whose rate is ``env_steps_per_s.kuka``: the same
+reader (``metrics/rollout_launches_per_step.py``)."""
+import manifest
+
+
+def read(ctx):
+    return manifest.metric_reader("rollout_launches_per_step").read(ctx)
