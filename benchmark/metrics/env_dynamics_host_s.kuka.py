@@ -1,0 +1,7 @@
+"""``env_dynamics_host_s``, in the cells whose rate is ``env_steps_per_s.kuka``: the same
+reader (``metrics/env_dynamics_host_s.py``)."""
+import manifest
+
+
+def read(ctx):
+    return manifest.metric_reader("env_dynamics_host_s").read(ctx)

@@ -472,6 +472,8 @@ def compare_render2d(torch, dev, mobile_robot, render2d):
     """Kernel against twin, bit for bit, on every MobileRobot configuration,
     reset and after 20 steps: (max |diff|, the main path's env and kernel
     inputs)."""
+    from srl_tpu_torch import ops
+
     max_err, main_inputs = 0, None
     for name, kwargs, n in RENDER2D_CASES:
         env = getattr(mobile_robot, name)(srl_model="raw_pixels", **kwargs)
@@ -480,9 +482,9 @@ def compare_render2d(torch, dev, mobile_robot, render2d):
         for n_steps in (0, 20):
             for _ in range(n_steps):
                 states, _, _ = env.step(states, env.action_space.sample(gen, n), gen)
-            render2d.launches = 0
+            ops.reset_launches()
             out = render2d.render_mobile_robot(env, states)
-            if render2d.launches != 1:
+            if ops.launches()["render2d"] != 1:
                 raise AssertionError(f"render2d {name}: the kernel was not launched")
             scene = render2d.scene_params(env, states)
             xs, ys, bg = render2d.static_tensors(env.dim, *env.render_shape, dev)
@@ -513,22 +515,23 @@ LSTM_PPO_KEYS = ("loss",) + PPO_KEYS
 ACKTR_KEYS = ("loss", "eta", "mean_reward_per_step")
 
 
-def run_cli(torch, train, argv, counters, what, keys=PPO_KEYS):
+def run_cli(torch, train, argv, what, keys=PPO_KEYS):
     """Run the CLI with every launch count set to 0 just before; returns
     (log dir, seconds, launches per kernel, this run's metrics lines), every
     logged metric of ``keys`` finite. A resumed run's rate counts its own
     steps only."""
+    from srl_tpu_torch import ops
+
     prior = []
     if "--resume" in argv:
         with open(os.path.join(argv[argv.index("--resume") + 1], "metrics.jsonl")) as fh:
             prior = [json.loads(line) for line in fh]
-    for module in counters.values():
-        module.launches = 0
+    ops.reset_launches()
     t0 = time.perf_counter()
     log_dir = train.main(argv)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {name: module.launches for name, module in counters.items()}
+    launches = ops.launches()
     with open(os.path.join(log_dir, "metrics.jsonl")) as fh:
         entries = [json.loads(line) for line in fh][len(prior):]
     for e in entries:
@@ -556,7 +559,7 @@ def log_root(keep=None):
     return contextlib.nullcontext(os.path.join(KEPT["root"], "logs"))
 
 
-def drive(torch, train, argv, counters, what, obs_shape=None, keys=PPO_KEYS, keep=None):
+def drive(torch, train, argv, what, obs_shape=None, keys=PPO_KEYS, keep=None):
     """A CLI run in a temporary log dir: (seconds, launches per kernel,
     metrics lines). With ``obs_shape``, the run's observation normalizer
     must have that shape (the observations the agent saw). With ``keep``,
@@ -566,7 +569,7 @@ def drive(torch, train, argv, counters, what, obs_shape=None, keys=PPO_KEYS, kee
     cls = train.resolve_policy_class(algo, policy)
     with log_root(keep) as tmp, Trained(cls, best=keep is not None) as trained:
         log_dir, seconds, launches, entries = run_cli(
-            torch, train, argv + ["--log-dir", tmp, "--device", "cuda"], counters, what, keys)
+            torch, train, argv + ["--log-dir", tmp, "--device", "cuda"], what, keys)
         if keep:
             KEPT[keep] = (log_dir, trained.replayed())
         for f in RUN_FILES:
@@ -580,16 +583,17 @@ def drive(torch, train, argv, counters, what, obs_shape=None, keys=PPO_KEYS, kee
     return seconds, launches, entries
 
 
-def record(torch, generator, episode_saver, argv, counters, what, root):
+def record(torch, generator, episode_saver, argv, what, root):
     """The dataset generator CLI with the launch counts set to 0 just
     before; returns (dataset folder, launches per kernel)."""
-    for module in counters.values():
-        module.launches = 0
+    from srl_tpu_torch import ops
+
+    ops.reset_launches()
     t0 = time.perf_counter()
     folder = generator.main(argv + ["--save-path", root, "--device", "cuda"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {name: module.launches for name, module in counters.items()}
+    launches = ops.launches()
     data = episode_saver.load_dataset(folder)
     obs, n = data["observations"], len(data["rewards"])
     if obs.shape != (n, 224, 224, 3) or obs.dtype.name != "uint8":
@@ -601,10 +605,11 @@ def record(torch, generator, episode_saver, argv, counters, what, root):
     return folder, launches
 
 
-def train_encoder(torch, train_srl, folder, epochs, counters, what, log_dir):
+def train_encoder(torch, train_srl, folder, epochs, what, log_dir):
     """The train_srl CLI; returns its history.json (losses finite)."""
-    for module in counters.values():
-        module.launches = 0
+    from srl_tpu_torch import ops
+
+    ops.reset_launches()
     path = train_srl.main(["--data-folder", folder, "--epochs", str(epochs), "--log-dir",
                            log_dir, "--device", "cuda"] + SRL_TRAIN)
     with open(os.path.join(log_dir, "history.json")) as fh:
@@ -621,7 +626,7 @@ def train_encoder(torch, train_srl, folder, epochs, counters, what, log_dir):
     return hist
 
 
-def srl_workflow(torch, train, counters) -> dict:
+def srl_workflow(torch, train) -> dict:
     """Step 5: record, train, serve, on MobileRobot then on Kuka."""
     from srl_tpu_torch.data import dataset_generator
     from srl_tpu_torch.experiments import train_srl
@@ -641,15 +646,15 @@ def srl_workflow(torch, train, counters) -> dict:
             ("MobileRobotGymEnv-v0", SRL_MOBILE_DATA, 2, SRL_MOBILE_ARGS, 256, "render2d"),
             ("KukaButtonGymEnv-v0", SRL_KUKA_DATA, 1, SRL_KUKA_ARGS, 512, "render3d")):
         folder, rec_launches = record(torch, dataset_generator, episode_saver, data_args,
-                                      counters, env, root)
+                                      env, root)
         if env == "MobileRobotGymEnv-v0":
             KEPT["mobile dataset"] = folder
         if rec_launches[kernel] <= 0:
             raise AssertionError(f"recording {env} never launched the {kernel} kernel")
-        train_encoder(torch, train_srl, folder, epochs, counters, env,
+        train_encoder(torch, train_srl, folder, epochs, env,
                       os.path.join(logs[env], "autoencoder"))
         seconds, launches, entries = drive(
-            torch, train, run_args + ["--srl-config-file", config], counters,
+            torch, train, run_args + ["--srl-config-file", config],
             f"{env} autoencoder (SRLEncodedEnv) {n_envs} envs", obs_shape=(3,),
             keep="mobile srl" if env == "MobileRobotGymEnv-v0" else None)
         if launches[kernel] <= 0:
@@ -658,13 +663,14 @@ def srl_workflow(torch, train, counters) -> dict:
     return out
 
 
-def new_envs(torch, train, counters) -> dict:
+def new_envs(torch, train) -> dict:
     """Step 6: the mixed Kuka + Omnirobot pixel run, CarRacing from pixels,
     Omnirobot from ground truth, and the IK debugger."""
+    from srl_tpu_torch import ops
     from srl_tpu_torch.core.env import VecEnv
     from srl_tpu_torch.envs import debug
 
-    _, mixed, entries = drive(torch, train, MIXED_ARGS, counters,
+    _, mixed, entries = drive(torch, train, MIXED_ARGS,
                               "mixed KukaButtonGymEnv-v0 + OmnirobotEnv-v0 raw_pixels 256 envs",
                               keep="mixed")
     if mixed["render3d"] <= 0:
@@ -685,19 +691,18 @@ def new_envs(torch, train, counters) -> dict:
                                                                         slice(128, 256)))
     log(f"[main] mixed batch {tuple(tr.obs.shape)} {tr.obs.dtype}, families {vec.counts}: "
         f"mean byte {kuka_mean:.1f} (Kuka) and {omni_mean:.1f} (Omnirobot)")
-    _, car, _ = drive(torch, train, CAR_ARGS, counters, "CarRacingGymEnv-v0 raw_pixels 256 envs")
-    drive(torch, train, OMNI_GT_ARGS, counters, "OmnirobotEnv-v0 ground_truth 1024 envs",
+    _, car, _ = drive(torch, train, CAR_ARGS, "CarRacingGymEnv-v0 raw_pixels 256 envs")
+    drive(torch, train, OMNI_GT_ARGS, "OmnirobotEnv-v0 ground_truth 1024 envs",
           obs_shape=(2,))
     with tempfile.TemporaryDirectory() as tmp:
-        for module in counters.values():
-            module.launches = 0
+        ops.reset_launches()
         errors = debug.main(["--target", "0.4", "0.1", "0.35", "--steps", "200", "--out", tmp])
         files = os.listdir(tmp)
     if len(errors) != 1 or not math.isfinite(errors[0]) or len(files) != 1 \
-            or counters["render3d"].launches <= 0:
+            or ops.launches()["render3d"] <= 0:
         raise AssertionError(f"envs.debug: errors {errors}, files {files}")
     log(f"[main] envs.debug: tip error {errors[0]:.4f} after 200 servo steps; wrote {files[0]} "
-        f"(render3d launches {counters['render3d'].launches})")
+        f"(render3d launches {ops.launches()['render3d']})")
     return {"mixed": mixed, "car": car}
 
 
@@ -748,6 +753,7 @@ def recompute_minibatch(torch, train, render3d, dev) -> dict:
     frames recorded as the policy saw them; one minibatch of 8,192 re-rendered
     by render3d must equal its stored frames bit for bit. Then render3d at
     that N against its twin (in chunks of 256 envs), timed, with its bound."""
+    from srl_tpu_torch import ops
     from srl_tpu_torch.agents.common import collect_rollout
     from srl_tpu_torch.agents.ppo import PPO2
     from srl_tpu_torch.core.env import state_map
@@ -768,11 +774,12 @@ def recompute_minibatch(torch, train, render3d, dev) -> dict:
     states = state_map(lambda x: x.flatten(0, 1), batch.obs)
     idx = torch.randperm(frames.shape[0], generator=gen, device=dev)[:MINIBATCH]
     mb = state_map(lambda x: x[idx], states)
-    render3d.launches = 0
+    ops.reset_launches()
     again = env.observe(mb)
     torch.cuda.synchronize()
-    if render3d.launches != 1 or not torch.equal(again, frames[idx]):
-        raise AssertionError(f"re-rendered minibatch: {render3d.launches} launches, "
+    launched = ops.launches()["render3d"]
+    if launched != 1 or not torch.equal(again, frames[idx]):
+        raise AssertionError(f"re-rendered minibatch: {launched} launches, "
                              f"{int((again != frames[idx]).sum())} values differ")
     log(f"[recompute] one minibatch of {MINIBATCH} env states re-rendered by render3d "
         f"{tuple(again.shape)}: bit-equal to the frames the rollout stored")
@@ -797,7 +804,7 @@ def recompute_minibatch(torch, train, render3d, dev) -> dict:
     return dict(ms=ms, max_abs_err=int(diff.max()), **bound)
 
 
-def full_surface(torch, train, counters, stored_launches: int, stored_seconds: float) -> dict:
+def full_surface(torch, train, stored_launches: int, stored_seconds: float) -> dict:
     """Step 7: PPO2's --recompute-obs with checkpoints, --resume,
     --load-rl-model-path, and A2C, PPO1 and TRPO, on the Kuka pixel path."""
     from srl_tpu_torch.agents.base import BaseRLAgent
@@ -809,7 +816,7 @@ def full_surface(torch, train, counters, stored_launches: int, stored_seconds: f
         argv = KUKA_ARGS + ["--recompute-obs", "--checkpoint-interval", "1",
                             "--log-dir", os.path.join(root, "a"), "--device", "cuda"]
         log_dir, seconds, launches, entries = run_cli(
-            torch, train, argv, counters, "KukaButtonGymEnv-v0 raw_pixels 256 envs "
+            torch, train, argv, "KukaButtonGymEnv-v0 raw_pixels 256 envs "
             "--recompute-obs --checkpoint-interval 1")
         extra = launches["render3d"] - stored_launches
         log(f"[recompute] render3d launches {launches['render3d']} against {stored_launches} "
@@ -831,7 +838,7 @@ def full_surface(torch, train, counters, stored_launches: int, stored_seconds: f
             json.dump(stored, fh)
         _, _, launches, _ = run_cli(
             torch, train, ["--resume", log_dir, "--checkpoint-interval", "1", "--device",
-                           "cuda"], counters, "the same run resumed (--resume)")
+                           "cuda"], "the same run resumed (--resume)")
         _, meta2 = BaseRLAgent.load_checkpoint(ckpt)
         with open(os.path.join(log_dir, "0.monitor.csv")) as fh:
             headers = fh.read().count("r,l,t")
@@ -850,7 +857,7 @@ def full_surface(torch, train, counters, stored_launches: int, stored_seconds: f
             torch, train, FINETUNE_ARGS + ["--load-rl-model-path", first_model,
                                            "--hyperparam", "learning_rate:0", "--log-dir",
                                            os.path.join(root, "c"), "--device", "cuda"],
-            counters, "fine-tune (--load-rl-model-path, learning_rate:0)")
+            "fine-tune (--load-rl-model-path, learning_rate:0)")
         before = final_params(first_model)
         after = final_params(os.path.join(ft_dir, "ppo2_final_model.pkl"))
         same = all(np.array_equal(a, b) for a, b in zip(before, after))
@@ -861,7 +868,7 @@ def full_surface(torch, train, counters, stored_launches: int, stored_seconds: f
     for name, args, keys in (("a2c", A2C_ARGS, A2C_KEYS), ("ppo1", PPO1_ARGS, PPO_KEYS),
                              ("trpo", TRPO_ARGS, TRPO_KEYS)):
         n_envs = args[args.index("--num-envs") + 1]
-        _, launches, entries = drive(torch, train, args, counters,
+        _, launches, entries = drive(torch, train, args,
                                      f"{name} KukaButtonGymEnv-v0 raw_pixels {n_envs} envs",
                                      keys=keys)
         if launches["render3d"] <= 0 or len(entries) != 2:
@@ -905,7 +912,7 @@ def acts_alike(torch, saved, trained, env, what, dones_seq=(None, None), atol=0.
     return acts
 
 
-def recurrent_agents(torch, train, counters) -> dict:
+def recurrent_agents(torch, train) -> dict:
     """Step 8: the recurrent PPO2 (8a, the slice's main path), A2C (8b) and
     ACKTR (8d) on the Kuka pixel path, ACKTR with the CNN on MobileRobot
     pixels (8c)."""
@@ -917,7 +924,7 @@ def recurrent_agents(torch, train, counters) -> dict:
         log_dir, seconds, launches, entries = run_cli(
             torch, train, LSTM_PPO_ARGS + ["--checkpoint-interval", "1", "--log-dir", root,
                                            "--device", "cuda"],
-            counters, "8a ppo2 --policy cnnlstm KukaButtonGymEnv-v0 raw_pixels 256 envs, "
+            "8a ppo2 --policy cnnlstm KukaButtonGymEnv-v0 raw_pixels 256 envs, "
             "n_steps 609", LSTM_PPO_KEYS)
         if len(entries) != 1 or launches["render3d"] != 609 + 1:
             raise AssertionError(f"8a: {len(entries)} updates, render3d launched "
@@ -945,7 +952,7 @@ def recurrent_agents(torch, train, counters) -> dict:
             ("8c acktr (cnn) MobileRobotGymEnv-v0 raw_pixels 224x224", ACKTR_ARGS, ACKTR_KEYS,
              "render2d"),
             ("8d acktr --policy cnnlstm", LSTM_ACKTR_ARGS, ACKTR_KEYS, "render3d")):
-        _, launches, entries = drive(torch, train, args, counters, f"{step} 256 envs", keys=keys)
+        _, launches, entries = drive(torch, train, args, f"{step} 256 envs", keys=keys)
         if launches[kernel] <= 0 or len(entries) != 2:
             raise AssertionError(f"{step}: {len(entries)} updates, launches {launches}")
         if "eta" in keys:
@@ -1039,7 +1046,7 @@ class Trained:
         return self.agent
 
 
-def replay_agents(torch, train, counters) -> dict:
+def replay_agents(torch, train) -> dict:
     """Step 9: ACER (9a, the slice's main path) and RecurrentACER (9b) on the
     Kuka pixel path, DQN on MobileRobot pixels (9c)."""
     from srl_tpu_torch.agents.acer import ACER, RecurrentACER
@@ -1055,7 +1062,7 @@ def replay_agents(torch, train, counters) -> dict:
         launches_expected, replays_expected = acer_expected(args)
         with tempfile.TemporaryDirectory() as root, Trained(cls) as trained:
             log_dir, seconds, launches, entries = run_cli(
-                torch, train, args + ["--log-dir", root, "--device", "cuda"], counters,
+                torch, train, args + ["--log-dir", root, "--device", "cuda"],
                 f"{step} KukaButtonGymEnv-v0 raw_pixels 256 envs", ACER_KEYS)
             replays = [int(e["replays"]) for e in entries]
             if launches[kernel] != launches_expected or replays != replays_expected:
@@ -1082,7 +1089,7 @@ def replay_agents(torch, train, counters) -> dict:
 
     with tempfile.TemporaryDirectory() as root, Trained(DQN) as trained:
         log_dir, seconds, launches, entries = run_cli(
-            torch, train, DQN_ARGS + ["--log-dir", root, "--device", "cuda"], counters,
+            torch, train, DQN_ARGS + ["--log-dir", root, "--device", "cuda"],
             "9c deepq (cnn) MobileRobotGymEnv-v0 raw_pixels 224x224 256 envs", DQN_KEYS)
         updates = sum(e["td_updates"] for e in entries)
         copies = sum(e["target_copies"] for e in entries)
@@ -1145,7 +1152,7 @@ def es_expected(args, population: int) -> int:
     return (260 + 1) * max(1, int(flag(args, "--num-timesteps") * 1.1) // (260 * population))
 
 
-def last_agents(torch, train, counters) -> dict:
+def last_agents(torch, train) -> dict:
     """Step 10: SAC (10a, the slice's main path) and ARS (10c) and the
     random agent (10e) on the Kuka pixel path, DDPG (10b) and CMA-ES (10d)
     on MobileRobot 224x224 pixels."""
@@ -1165,7 +1172,7 @@ def last_agents(torch, train, counters) -> dict:
         with log_root("sac" if cls is SAC else None) as root, \
                 Trained(cls, best=cls is SAC) as trained:
             log_dir, seconds, launches, entries = run_cli(
-                torch, train, args + ["--log-dir", root, "--device", "cuda"], counters,
+                torch, train, args + ["--log-dir", root, "--device", "cuda"],
                 f"{step} 256 envs", OFF_POLICY_KEYS)
             updates = sum(e["updates"] for e in entries)
             if launches[kernel] != n_steps + 1 or updates != updates_expected:
@@ -1204,7 +1211,7 @@ def last_agents(torch, train, counters) -> dict:
              "render2d", CMAES_KEYS)):
         with tempfile.TemporaryDirectory() as root, Trained(cls) as trained:
             log_dir, seconds, launches, entries = run_cli(
-                torch, train, args + ["--log-dir", root, "--device", "cuda"], counters,
+                torch, train, args + ["--log-dir", root, "--device", "cuda"],
                 f"{step} 20 envs", keys)
             agent = trained.agent
             expected = es_expected(args, agent.num_envs)
@@ -1233,7 +1240,7 @@ def last_agents(torch, train, counters) -> dict:
 
     with tempfile.TemporaryDirectory() as root:
         log_dir, seconds, launches, entries = run_cli(
-            torch, train, RANDOM_ARGS + ["--log-dir", root, "--device", "cuda"], counters,
+            torch, train, RANDOM_ARGS + ["--log-dir", root, "--device", "cuda"],
             "10e random_agent KukaButtonGymEnv-v0 raw_pixels 256 envs", ("mean_reward_per_step",))
         if launches["render3d"] != 257 or len(entries) != 1:
             raise AssertionError(f"10e: render3d launched {launches['render3d']} times, not 257")
@@ -1298,24 +1305,24 @@ def hold_frames(torch, result, env, render2d, render3d, what) -> float:
     return worst
 
 
-def replays(torch, counters, render2d, render3d) -> dict:
+def replays(torch, render2d, render3d) -> dict:
     """Step 11a-f: each kept run replayed through ``replay.enjoy``'s CLI at
     its width, the launch counts set to 0 just before and read just after."""
+    from srl_tpu_torch import ops
     from srl_tpu_torch.replay import enjoy
 
     out = {}
     for what, name, kernel, render, dones_seq, atol in REPLAYS:
         log_dir, trained = KEPT[name]
-        for module in counters.values():
-            module.launches = 0
+        ops.reset_launches()
         t0 = time.perf_counter()
         result = enjoy.main(["--log-dir", log_dir, "--num-envs", str(ENJOY_ENVS),
                              "--num-timesteps", str(ENJOY_ENVS * ENJOY_STEPS), "--plot",
                              "--device", "cuda"] + (["--render"] if render else []))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = {k: m.launches for k, m in counters.items()}
-        expected = {k: enjoy_expected(enjoy, render) if k == kernel else 0 for k in counters}
+        launches = ops.launches()
+        expected = {k: enjoy_expected(enjoy, render) if k == kernel else 0 for k in launches}
         if launches != expected:
             raise AssertionError(f"{what}: launches {launches}, not {expected}")
         returns = result["episode_returns"]
@@ -1558,7 +1565,7 @@ def served_batch(call: int):
     kept["calls"] = calls
 
 
-def srl_service(torch, train, counters, render2d) -> int:
+def srl_service(torch, train, render2d) -> int:
     """Step 12a: train an encoder through the SRL service and serve it;
     returns render2d's launches while serving."""
     from srl_tpu_torch.srl import client, server
@@ -1587,7 +1594,7 @@ def srl_service(torch, train, counters, render2d) -> int:
                  f"  autoencoder: {os.path.basename(path)}\n")
     argv = SRL_SERVE_ARGS + ["--srl-config-file", config]
     with served_batch(SERVED_CALL) as kept:
-        _, launches, _ = drive(torch, train, argv, counters,
+        _, launches, _ = drive(torch, train, argv,
                                "12a the service's encoder (SRLEncodedEnv) 256 envs",
                                obs_shape=(3,))
     expected = {"render2d": 257, "render3d": 0}
@@ -2094,51 +2101,50 @@ def main() -> int:
         f"so library_ms is null")
 
     # 4. The main paths, each with the counts set to 0 just before it.
-    counters = {"render3d": render3d, "render2d": render2d}
-    kuka_seconds, kuka_launches, _ = drive(torch, train, KUKA_ARGS, counters,
+    kuka_seconds, kuka_launches, _ = drive(torch, train, KUKA_ARGS,
                                            "KukaButtonGymEnv-v0 raw_pixels 256 envs",
                                            keep="kuka")
     if kuka_launches["render3d"] <= 0:
         raise AssertionError("the Kuka pixel path never launched the render3d kernel")
-    _, mobile_launches, _ = drive(torch, train, MOBILE_ARGS, counters,
+    _, mobile_launches, _ = drive(torch, train, MOBILE_ARGS,
                                   "MobileRobotGymEnv-v0 raw_pixels 224x224 256 envs",
                                   keep="mobile")
     if mobile_launches["render2d"] <= 0:
         raise AssertionError("the MobileRobot pixel path never launched the render2d kernel")
-    _, _, entries = drive(torch, train, QUICKSTART_ARGS, counters,
+    _, _, entries = drive(torch, train, QUICKSTART_ARGS,
                           "MobileRobotGymEnv-v0 ground_truth 4096 envs")
     log("[main] quickstart mean reward per env step, by update: "
         + ", ".join(f"{e['mean_reward_per_step']:.5f}" for e in entries))
 
     # 5. The SRL workflow.
-    srl_launches = srl_workflow(torch, train, counters)
+    srl_launches = srl_workflow(torch, train)
     log(f"[srl] launches: {json.dumps(srl_launches)}")
 
     # 6. The mixed batch, CarRacing, Omnirobot and the IK debugger.
-    new_launches = new_envs(torch, train, counters)
+    new_launches = new_envs(torch, train)
     log(f"[main] launches: {json.dumps(new_launches)}")
 
     # 7. PPO2's full surface and the other agents on the Kuka pixel path.
     mb = recompute_minibatch(torch, train, render3d, dev)
-    surface_launches = full_surface(torch, train, counters, kuka_launches["render3d"],
+    surface_launches = full_surface(torch, train, kuka_launches["render3d"],
                                     kuka_seconds)
     log(f"[main] render3d launches: {json.dumps(surface_launches)}")
     t_step8 = time.perf_counter()
 
     # 8. The recurrent agents and ACKTR.
-    lstm_launches = recurrent_agents(torch, train, counters)
+    lstm_launches = recurrent_agents(torch, train)
     log(f"[lstm] launches: {json.dumps(lstm_launches)}; step 8 took "
         f"{time.perf_counter() - t_step8:.1f} s")
     t_step9 = time.perf_counter()
 
     # 9. ACER, RecurrentACER and DQN.
-    replay_launches = replay_agents(torch, train, counters)
+    replay_launches = replay_agents(torch, train)
     log(f"[replay] launches: {json.dumps(replay_launches)}; step 9 took "
         f"{time.perf_counter() - t_step9:.1f} s")
     t_step10 = time.perf_counter()
 
     # 10. SAC, DDPG, ARS, CMA-ES and the random agent.
-    last_launches = last_agents(torch, train, counters)
+    last_launches = last_agents(torch, train)
     log(f"[last] launches: {json.dumps(last_launches)}; step 10 took "
         f"{time.perf_counter() - t_step10:.1f} s")
     t_step11 = time.perf_counter()
@@ -2154,7 +2160,7 @@ def main() -> int:
         f"{found['zmq'] or 'is not installed'}"
         + ("" if found["matplotlib"] else ": the figures are left out, every replay and "
            "kernel still runs"))
-    enjoy_launches = replays(torch, counters, render2d, render3d)
+    enjoy_launches = replays(torch, render2d, render3d)
     host_tools(torch, found["matplotlib"] is not None)
     log(f"[replay] launches: {json.dumps(enjoy_launches)}; step 11 took "
         f"{time.perf_counter() - t_step11:.1f} s")
@@ -2164,7 +2170,7 @@ def main() -> int:
     import zmq
 
     log(f"[zmq] pyzmq {zmq.__version__}, libzmq {zmq.zmq_version()}")
-    srl_server_launches = srl_service(torch, train, counters, render2d)
+    srl_server_launches = srl_service(torch, train, render2d)
     sim_loopback(torch)
     log(f"[zmq] step 12 took {time.perf_counter() - t_step12:.1f} s")
     t_step13 = time.perf_counter()

@@ -27,6 +27,7 @@ from srl_tpu_torch.core.normalize import RunningNorm
 from srl_tpu_torch.core.spaces import Discrete
 from srl_tpu_torch.models.policies import ActorCritic, make_policy
 from srl_tpu_torch.parallel.mesh import gather_params, shard_params, tp_sharded
+from srl_tpu_torch.utils import trace
 
 
 def as_tensor_on(x, device) -> torch.Tensor:
@@ -127,7 +128,8 @@ class BaseRLAgent:
             self.vec_env = VecEnv(env, self.num_envs)
         self.obs_shape = tuple(env.observation_space.shape)
         self.input_scale = input_scale
-        self.policy: ActorCritic = self._make_policy().to(self.device)
+        with trace.span("agent.policy_init"):
+            self.policy: ActorCritic = self._make_policy().to(self.device)
         if normalize_obs is None:
             normalize_obs = env.srl_model != "raw_pixels"
         self.normalize_obs = normalize_obs

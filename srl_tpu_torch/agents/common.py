@@ -13,6 +13,7 @@ from srl_tpu_torch.core.env import VecEnv, VecEnvState, state_map
 from srl_tpu_torch.core.normalize import RunningNorm
 from srl_tpu_torch.core.numerics import fma
 from srl_tpu_torch.models.distributions import Categorical
+from srl_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -64,24 +65,26 @@ def collect_rollout(
     )
     rows = None if mesh is None else (mesh.env_slice(vec_env.num_envs)[0], vec_env.num_envs)
     observed, steps = [], []
-    for _ in range(n_steps):
-        if obs_norm is not None:
-            obs_norm = obs_norm.update(obs, mesh)
-            norm_obs = obs_norm.normalize(obs)
-        else:
-            norm_obs = obs
-        dist, value = policy(norm_obs)
-        action = dist.sample(gen, rows)
-        log_prob = dist.log_prob(action)
-        observed.append(vstate.env_state if store_states else norm_obs)
-        vstate, tr = vec_env.step(vstate, action, gen, mesh=mesh)
-        steps.append((action, log_prob, value, tr.reward, tr.done,
-                      tr.episode_return, tr.episode_length))
-        obs = tr.obs
-    stack = lambda *xs: torch.stack(xs)
-    batch = RolloutBatch(state_map(stack, *observed) if store_states else stack(*observed),
-                         *(stack(*x) for x in zip(*steps)))
-    last_norm_obs = obs_norm.normalize(obs) if obs_norm is not None else obs
+    with trace.span("rollout"):
+        for _ in range(n_steps):
+            with trace.span("rollout.policy"):
+                if obs_norm is not None:
+                    obs_norm = obs_norm.update(obs, mesh)
+                    norm_obs = obs_norm.normalize(obs)
+                else:
+                    norm_obs = obs
+                dist, value = policy(norm_obs)
+                action = dist.sample(gen, rows)
+                log_prob = dist.log_prob(action)
+            observed.append(vstate.env_state if store_states else norm_obs)
+            vstate, tr = vec_env.step(vstate, action, gen, mesh=mesh)
+            steps.append((action, log_prob, value, tr.reward, tr.done,
+                          tr.episode_return, tr.episode_length))
+            obs = tr.obs
+        stack = lambda *xs: torch.stack(xs)
+        batch = RolloutBatch(state_map(stack, *observed) if store_states else stack(*observed),
+                             *(stack(*x) for x in zip(*steps)))
+        last_norm_obs = obs_norm.normalize(obs) if obs_norm is not None else obs
     return vstate, obs, obs_norm, last_norm_obs, batch
 
 

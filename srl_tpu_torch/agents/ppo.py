@@ -71,6 +71,7 @@ from srl_tpu_torch.core.device import resolve_device
 from srl_tpu_torch.core.env import state_map
 from srl_tpu_torch.core.frame_stack import FrameStack
 from srl_tpu_torch.core.optim import adam_init, adam_update_
+from srl_tpu_torch.utils import trace
 
 EMPTY_STATE = "optax._src.base.EmptyState"
 ADAM_STATE = "optax._src.transform.ScaleByAdamState"
@@ -300,29 +301,33 @@ class PPO2(BaseRLAgent):
         opt_state = {"count": opt_state["count"],
                      "mu": {k: v.clone() for k, v in opt_state["mu"].items()},
                      "nu": {k: v.clone() for k, v in opt_state["nu"].items()}}
-        auxs = []
-        for perm in perms:
-            for i in range(cfg.nminibatches):
-                idx = perm[i * mb_size:(i + 1) * mb_size]
-                whole = self.whole_params(params, mesh)
-                leaves = {k: whole[k].detach().requires_grad_(True) for k in names}
-                if mesh is None:
-                    loss, aux = self._loss(leaves, self._minibatch(data, idx), cfg.cliprange)
-                    grads = torch.autograd.grad(loss, [leaves[k] for k in names])
-                    self.note_grads(grads)
-                else:
-                    grads, aux = self._shard_grads(leaves, data, idx, mesh)
-                with torch.no_grad():
-                    self.optimizer_step_(params, dict(zip(names, grads)), opt_state, mesh)
-                auxs.append(aux)
-        if mesh is None:
-            metrics = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
-        else:
-            # Each rank's parts are its shares of the global means: their
-            # sums over the ranks are the one-process parts.
-            stacked = mesh.all_reduce_(torch.stack([torch.stack(list(a.values()))
-                                                    for a in auxs]))
-            metrics = dict(zip(auxs[0], stacked.mean(0)))
+        with trace.span("epochs"):
+            auxs = []
+            for perm in perms:
+                for i in range(cfg.nminibatches):
+                    with trace.span("epochs.minibatch"):
+                        idx = perm[i * mb_size:(i + 1) * mb_size]
+                        whole = self.whole_params(params, mesh)
+                        leaves = {k: whole[k].detach().requires_grad_(True) for k in names}
+                        if mesh is None:
+                            loss, aux = self._loss(leaves, self._minibatch(data, idx),
+                                                   cfg.cliprange)
+                            grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+                            self.note_grads(grads)
+                        else:
+                            grads, aux = self._shard_grads(leaves, data, idx, mesh)
+                        with torch.no_grad():
+                            self.optimizer_step_(params, dict(zip(names, grads)), opt_state,
+                                                 mesh)
+                        auxs.append(aux)
+            if mesh is None:
+                metrics = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
+            else:
+                # Each rank's parts are its shares of the global means: their
+                # sums over the ranks are the one-process parts.
+                stacked = mesh.all_reduce_(torch.stack([torch.stack(list(a.values()))
+                                                        for a in auxs]))
+                metrics = dict(zip(auxs[0], stacked.mean(0)))
         return params, opt_state, metrics
 
     def _shard_grads(self, leaves, data, idx, mesh):
@@ -340,7 +345,12 @@ class PPO2(BaseRLAgent):
 
     def train_iteration(self, state: PPOState, gen: torch.Generator):
         """One PPO update: rollout, GAE, shuffled minibatch epochs; on the
-        state's mesh, data-parallel (module docstring)."""
+        state's mesh, data-parallel (module docstring). Traced as the update
+        ``state.update_idx`` (``utils/trace``)."""
+        with trace.update(state.update_idx):
+            return self._train_iteration(state, gen)
+
+    def _train_iteration(self, state: PPOState, gen: torch.Generator):
         cfg = self.config
         mesh = state.mesh
         # The parameters do not change during the rollout: one gather.
@@ -349,10 +359,11 @@ class PPO2(BaseRLAgent):
         vstate, obs, obs_norm, last_norm_obs, batch = collect_rollout(
             self.vec_env, policy, state.vstate, state.obs, state.obs_norm, gen,
             cfg.n_steps, store_states=self.recompute_obs, mesh=mesh)
-        with torch.no_grad():
-            _, last_value = policy(last_norm_obs)
-        advantages, returns = compute_gae(batch.rewards, batch.values, batch.dones,
-                                          last_value, cfg.gamma, cfg.lam)
+        with trace.span("gae"):
+            with torch.no_grad():
+                _, last_value = policy(last_norm_obs)
+            advantages, returns = compute_gae(batch.rewards, batch.values, batch.dones,
+                                              last_value, cfg.gamma, cfg.lam)
         flat = lambda x: x.reshape((x.shape[0] * x.shape[1],) + x.shape[2:])
         obs_data = (state_map(flat, batch.obs) if self.recompute_obs else flat(batch.obs))
         data = (obs_data, flat(batch.actions), flat(batch.log_probs),

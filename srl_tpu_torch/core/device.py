@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from srl_tpu_torch.utils import trace
+
 
 def resolve_device(device="cuda") -> torch.device:
     dev = torch.device(device)
@@ -16,3 +18,12 @@ def resolve_device(device="cuda") -> torch.device:
             "to run on the CPU"
         )
     return dev
+
+
+def host_tensor(data, dtype=None, device=None) -> torch.Tensor:
+    """``torch.as_tensor(data, dtype=dtype, device=device)`` of host data,
+    traced as a host sync (``sync.h2d``, ``utils/trace``): on a card, a copy
+    from pageable host memory returns only once the stream has drained
+    (``cudaStreamSynchronize``), which blocks the host as a read does."""
+    with trace.sync("h2d"):
+        return torch.as_tensor(data, dtype=dtype, device=device)

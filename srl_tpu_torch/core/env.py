@@ -27,6 +27,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from srl_tpu_torch.core.spaces import Space
+from srl_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -214,18 +215,31 @@ class VecEnv:
         ``mesh.env_slice``): the noise, drawn or given, is the whole batch's,
         and whether an episode ended anywhere is one all-reduce. A rank with
         no rows here (a mixed batch's other family) still draws and joins
-        it, and returns (vstate, None)."""
-        if step_noise is None:
-            step_noise = self.env.draw_step_noise(gen, self.num_envs)
-        if mesh is not None:
-            lo, hi = mesh.env_slice(self.num_envs) if rows is None else rows
-            if lo == hi:
-                if mesh.any(actions.new_zeros(1, dtype=torch.bool)) and reset_noise is None:
-                    self.env.draw_reset_noise(gen, self.num_envs)
-                return vstate, None
-            step_noise = take_rows(step_noise, lo, hi)
-        env_state, reward, done = self.env.apply_step(
-            vstate.env_state, actions, step_noise)
+        it, and returns (vstate, None).
+
+        Traced (``utils/trace``) as the span ``env.step`` holding
+        ``env.dynamics``, ``sync.done`` (the blocking read of ``done``),
+        ``env.reset`` (on steps where an episode ended: counted in
+        ``reset_steps``, and in detail mode their envs in ``envs_reset``)
+        and ``env.observe``."""
+        with trace.span("env.step"):
+            return self._step(vstate, actions, gen, step_noise, reset_noise, mesh, rows)
+
+    def _step(self, vstate, actions, gen, step_noise, reset_noise, mesh, rows):
+        """``step``'s phases, each under its span (``MixedVecEnv`` steps its
+        families through this, inside its own ``env.step``)."""
+        with trace.span("env.dynamics"):
+            if step_noise is None:
+                step_noise = self.env.draw_step_noise(gen, self.num_envs)
+            if mesh is not None:
+                lo, hi = mesh.env_slice(self.num_envs) if rows is None else rows
+                if lo == hi:
+                    if mesh.any(actions.new_zeros(1, dtype=torch.bool)) and reset_noise is None:
+                        self.env.draw_reset_noise(gen, self.num_envs)
+                    return vstate, None
+                step_noise = take_rows(step_noise, lo, hi)
+            env_state, reward, done = self.env.apply_step(
+                vstate.env_state, actions, step_noise)
         ep_return = vstate.ep_return + reward
         ep_length = vstate.ep_length + 1
 
@@ -233,15 +247,28 @@ class VecEnv:
         # pass is skipped on the common step where no episode ended; on a
         # mesh the sync is the all-reduce of the flag, so that every rank
         # draws the reset noise on the same steps).
-        if bool(done.any()) if mesh is None else mesh.any(done):
-            if reset_noise is None:
-                reset_noise = self.env.draw_reset_noise(gen, self.num_envs)
-            if mesh is not None:
-                reset_noise = take_rows(reset_noise, lo, hi)
-            fresh = self.env.apply_reset(reset_noise)
-            env_state = state_where(done, fresh, env_state)
+        if mesh is None:
+            detail = trace.detail()
+            with trace.sync("done"):
+                # Detail mode reads how many ended (``envs_reset``): a bool
+                # tensor's sum costs a cast kernel more than ``any``.
+                ended = int(done.sum()) if detail else bool(done.any())
+            if detail and ended:
+                trace.count("envs_reset", ended)
+        else:
+            ended = mesh.any(done)
+        if ended:
+            trace.count("reset_steps")
+            with trace.span("env.reset"):
+                if reset_noise is None:
+                    reset_noise = self.env.draw_reset_noise(gen, self.num_envs)
+                if mesh is not None:
+                    reset_noise = take_rows(reset_noise, lo, hi)
+                fresh = self.env.apply_reset(reset_noise)
+                env_state = state_where(done, fresh, env_state)
 
-        obs = self.env.observe(env_state)
+        with trace.span("env.observe"):
+            obs = self.env.observe(env_state)
         transition = Transition(
             obs=obs,
             reward=reward,

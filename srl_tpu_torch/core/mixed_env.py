@@ -34,6 +34,7 @@ import torch.distributed as dist
 
 from srl_tpu_torch.core.env import Transition, VecEnv
 from srl_tpu_torch.core.spaces import Box, Discrete
+from srl_tpu_torch.utils import trace
 
 
 def default_align(num_envs: int, n_families: int, n_devices: Optional[int] = None) -> int:
@@ -184,7 +185,12 @@ class MixedVecEnv(VecEnv):
         """One step of every family's slice. With ``mesh``, ``actions`` and
         ``vstate`` hold the rank's rows ``mesh.env_slice(num_envs)``: each
         family steps the rows of it that the rank holds (maybe none, while
-        it still draws for its whole slice)."""
+        it still draws for its whole slice). Traced as one ``env.step``
+        holding each family's phases (``VecEnv.step``)."""
+        with trace.span("env.step"):
+            return self._step_families(vstate, actions, gen, step_noise, reset_noise, mesh)
+
+    def _step_families(self, vstate, actions, gen, step_noise, reset_noise, mesh):
         k = len(self.vecs)
         step_noise = step_noise or [None] * k
         reset_noise = reset_noise or [None] * k
@@ -199,8 +205,7 @@ class MixedVecEnv(VecEnv):
             if table is not None:
                 a = table[a.long()]
             rows = None if mesh is None else (f_lo - start, f_hi - start)
-            st, tr = vec.step(vstate[i], a, gen, step_noise=step_noise[i],
-                              reset_noise=reset_noise[i], mesh=mesh, rows=rows)
+            st, tr = vec._step(vstate[i], a, gen, step_noise[i], reset_noise[i], mesh, rows)
             new_states.append(st)
             if tr is not None:
                 trs.append(tr)

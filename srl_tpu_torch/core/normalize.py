@@ -16,6 +16,8 @@ import pickle
 import numpy as np
 import torch
 
+from srl_tpu_torch.core.device import host_tensor
+
 CLIP_OBS = 10.0
 EPS = 1e-8
 
@@ -42,8 +44,7 @@ class RunningNorm:
         if mesh is None:
             batch_mean = batch.mean(0)
             batch_var = batch.var(0, unbiased=False)
-            batch_count = torch.tensor(float(batch.shape[0]), dtype=torch.float32,
-                                       device=batch.device)
+            batch_count = host_tensor(float(batch.shape[0]), torch.float32, batch.device)
         else:
             batch_mean, batch_var, batch_count = mesh.moments(batch)
         delta = batch_mean - self.mean

@@ -17,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from srl_tpu_torch.core.device import host_tensor
 from srl_tpu_torch.core.env import BatchedEnv
 from srl_tpu_torch.core.spaces import Box, Discrete, Space
 from srl_tpu_torch.ops import kinematics as kin
@@ -162,8 +163,8 @@ class KukaButtonEnv(BatchedEnv):
         return Box(-np.inf, np.inf, (dims.get(self.srl_model, 3),))
 
     def _clip_ws(self, x: torch.Tensor) -> torch.Tensor:
-        lo = torch.as_tensor(self._ws_lo, device=x.device)
-        hi = torch.as_tensor(self._ws_hi, device=x.device)
+        lo = host_tensor(self._ws_lo, device=x.device)
+        hi = host_tensor(self._ws_hi, device=x.device)
         return torch.clamp(x, lo, hi)
 
     # ------------------------------------------------------------------
@@ -194,15 +195,15 @@ class KukaButtonEnv(BatchedEnv):
         f32 = dict(dtype=torch.float32, device=dev)
         z = torch.full((n, 1), Z_TABLE + BUTTON_DISTANCE_HEIGHT, **f32)
         if self.n_buttons == 1:
-            base = torch.tensor([0.5, 0.0], **f32).expand(n, 2)
+            base = host_tensor([0.5, 0.0], **f32).expand(n, 2)
             if self.random_target:
-                base = base + torch.tensor([0.15, 0.3], **f32) * noise["button_u"]
+                base = base + host_tensor([0.15, 0.3], **f32) * noise["button_u"]
             return torch.cat([base, z], 1)[:, None]
-        b1 = torch.tensor([0.5, 0.125], **f32).expand(n, 2)
-        b2 = torch.tensor([0.5, -0.125], **f32).expand(n, 2)
+        b1 = host_tensor([0.5, 0.125], **f32).expand(n, 2)
+        b2 = host_tensor([0.5, -0.125], **f32).expand(n, 2)
         if self.random_target:
             u = noise["button_u"]
-            scale = torch.tensor([0.15, 0.175], **f32)
+            scale = host_tensor([0.15, 0.175], **f32)
             b1 = b1 + scale * torch.stack([u[:, 0, 0] * 2 - 1, u[:, 0, 1]], -1)
             b2 = b2 + scale * torch.stack([u[:, 1, 0] * 2 - 1, -u[:, 1, 1]], -1)
         return torch.stack([torch.cat([b1, z], 1), torch.cat([b2, z], 1)], 1)
@@ -214,20 +215,20 @@ class KukaButtonEnv(BatchedEnv):
         buttons = self._buttons(noise, n, dev)
 
         if self._n_distract:
-            xy = (torch.tensor([0.5, 0.0], **f32)
-                  + torch.tensor([0.15, 0.3], **f32) * noise["object_u"])
+            xy = (host_tensor([0.5, 0.0], **f32)
+                  + host_tensor([0.15, 0.3], **f32) * noise["object_u"])
             inside = ((torch.abs(xy[..., 0] - buttons[:, :1, 0]) <= 0.1)
                       & (torch.abs(xy[..., 1] - buttons[:, :1, 1]) <= 0.1))
             z = torch.where(inside, -5.0, Z_TABLE + 0.03)
             distractors = torch.cat([xy, z[..., None]], -1)
         else:
             distractors = torch.zeros((n, 0, 3), **f32)
-        ball = torch.tensor([0.25, -0.2, Z_TABLE + 0.03, 0.0, 0.0, 0.0],
-                            **f32).expand(n, 6).clone()
+        ball = host_tensor([0.25, -0.2, Z_TABLE + 0.03, 0.0, 0.0, 0.0],
+                           **f32).expand(n, 6).clone()
 
         # Settled arm plus 5 random init actions.
-        q = torch.as_tensor(kin.settled_rest_q(), device=dev).expand(n, 7)
-        ee_target = torch.as_tensor(kin.REST_EE_TARGET, device=dev).expand(n, 3)
+        q = host_tensor(kin.settled_rest_q(), device=dev).expand(n, 7)
+        ee_target = host_tensor(kin.REST_EE_TARGET, device=dev).expand(n, 3)
         for i in range(N_RANDOM_ACTIONS_AT_INIT):
             if self.is_discrete:
                 sign = torch.where(noise["init_u"][:, i] > 0.5, 1.0, -1.0)
@@ -437,7 +438,7 @@ class KukaButtonEnv(BatchedEnv):
         return state.buttons[rows, state.goal_id.long()]
 
     def joints(self, state: KukaState) -> torch.Tensor:
-        g = torch.as_tensor(GRIPPER_JOINTS, device=state.q.device)
+        g = host_tensor(GRIPPER_JOINTS, device=state.q.device)
         return torch.cat([state.q, g.expand(state.q.shape[0], -1)], 1)
 
     def observe(self, state: KukaState) -> torch.Tensor:

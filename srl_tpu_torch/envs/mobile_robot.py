@@ -21,6 +21,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from srl_tpu_torch.core.device import host_tensor
 from srl_tpu_torch.core.env import BatchedEnv
 from srl_tpu_torch.core import numerics
 from srl_tpu_torch.core.spaces import Box, Discrete, Space
@@ -157,7 +158,7 @@ class MobileRobotEnv(BatchedEnv):
                 defaults = np.array([[0.9 * MAX_X, MAX_X]], np.float32)
             if self.dim == 1:
                 defaults[:, 1] = 0.0
-            targets = torch.as_tensor(defaults, device=dev).expand(n, -1, -1)
+            targets = host_tensor(defaults, device=dev).expand(n, -1, -1)
 
         i32 = dict(dtype=torch.int32, device=dev)
         false = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -195,8 +196,8 @@ class MobileRobotEnv(BatchedEnv):
         new = self._new_pos(prev, dv, action)
 
         # Per-axis wall margins; any bump rolls the whole position back.
-        margins = torch.as_tensor(self._margins, device=dev)
-        upper = torch.as_tensor(self._upper, device=dev)
+        margins = host_tensor(self._margins, device=dev)
+        upper = host_tensor(self._upper, device=dev)
         active = torch.arange(2, device=dev) < self.dim
         has_bumped = torch.any(((new < margins) | (new > upper)) & active, 1)
         robot_pos = torch.where(has_bumped[:, None], prev, new)

@@ -18,6 +18,8 @@ import tempfile
 import time
 from pathlib import Path
 
+from srl_tpu_torch.utils import trace
+
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "srl_tpu_torch"
@@ -86,8 +88,10 @@ def sass(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built at first use."""
+    """The loaded library for ``csrc/<name>.cu``, built at first use (the
+    build and the load traced as ``kernel.load``)."""
     lib = _LOADED.get(name)
     if lib is None:
-        lib = _LOADED[name] = ctypes.CDLL(str(build(name)))
+        with trace.span("kernel.load"):
+            lib = _LOADED[name] = ctypes.CDLL(str(build(name)))
     return lib

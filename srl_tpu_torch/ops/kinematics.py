@@ -13,6 +13,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from srl_tpu_torch.core.device import host_tensor
+
 IIWA_OFFSETS_Z = (0.1575, 0.2025, 0.2045, 0.2155, 0.1845, 0.2155, 0.081)
 # Joint axis kind: +1 -> Rz(q), +2 -> Ry(q), -2 -> Ry(-q) (axes z, y, z, -y,
 # z, y, z of the iiwa model).
@@ -45,7 +47,7 @@ TASK_STEP = 0.002
 
 
 def _const(x: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+    return host_tensor(x, torch.float32, like.device)
 
 
 def fk(q: torch.Tensor):

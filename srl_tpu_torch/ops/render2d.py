@@ -25,10 +25,9 @@ import numpy as np
 import torch
 
 from srl_tpu_torch.core import numerics
+from srl_tpu_torch.core.device import host_tensor
 from srl_tpu_torch.ops import renderer as rr
-
-# Launches of the CUDA kernel since the count was last set to 0.
-launches = 0
+from srl_tpu_torch.utils import trace
 
 SCENE_FLOATS = 8
 
@@ -58,8 +57,8 @@ def scene_params(env, states) -> torch.Tensor:
     n = states.robot_pos.shape[0]
     t0 = states.targets[:, 0]
     t1 = states.targets[:, 1] if env.n_targets > 1 else torch.zeros_like(t0)
-    flags = torch.tensor([float(env.n_targets > 1), float(env.line_target)],
-                         dtype=torch.float32, device=t0.device).expand(n, 2)
+    flags = host_tensor([float(env.n_targets > 1), float(env.line_target)],
+                        dtype=torch.float32, device=t0.device).expand(n, 2)
     return torch.cat([states.robot_pos, t0, t1, flags], 1).to(torch.float32).contiguous()
 
 
@@ -159,7 +158,6 @@ def render_mobile_robot_cuda(scene, xs_row, ys_col, bg_rgb, out=None) -> torch.T
     [H, W, 3], ``background_rgb``). Writes channels 0-2 of ``out``, uint8
     [N, H, W, C] with C >= 3 (a new [N, H, W, 3] tensor when None), and
     returns it."""
-    global launches
     n, h, w = scene.shape[0], ys_col.shape[0], xs_row.shape[0]
     for name, x, dtype, shape in (
         ("scene", scene, torch.float32, (n, SCENE_FLOATS)),
@@ -196,7 +194,7 @@ def render_mobile_robot_cuda(scene, xs_row, ys_col, bg_rgb, out=None) -> torch.T
             h, w, consts.ctypes.data, out.data_ptr(), out.shape[3], stream)
     if err != 0:
         raise RuntimeError(f"render2d kernel launch failed: CUDA error {err}")
-    launches += 1
+    trace.count("render2d.launches")
     return out
 
 

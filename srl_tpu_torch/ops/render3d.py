@@ -28,15 +28,14 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from srl_tpu_torch.core.device import host_tensor
 from srl_tpu_torch.envs import kuka as kuka_env
 from srl_tpu_torch.ops import camera
 from srl_tpu_torch.ops import kinematics as kin
 from srl_tpu_torch.ops import renderer3d as r3
+from srl_tpu_torch.utils import trace
 
 BIG = r3.BIG
-
-# Launches of the CUDA kernel since the count was last set to 0.
-launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -262,7 +261,7 @@ def _scene_table(env, states) -> Tuple[RenderConfig, torch.Tensor]:
     button xy, then distractors and ball when the env has them."""
     joint_pos, _, _, p_flange, p_tip = kin.fk(states.q)
     n = joint_pos.shape[0]
-    base = torch.as_tensor(kin.BASE_POS, device=joint_pos.device).expand(n, 1, 3)
+    base = host_tensor(kin.BASE_POS, device=joint_pos.device).expand(n, 1, 3)
     pts = torch.cat([base, joint_pos, p_flange[:, None], p_tip[:, None]], 1)
     cols = [pts.reshape(n, -1),
             states.buttons[:, : env.n_buttons, :2].reshape(n, -1)]
@@ -516,7 +515,6 @@ def render_kuka_cuda(cfg: RenderConfig, scene, cam: CameraTensors, out=None,
     when given (a contiguous tensor of that shape). ``cull=False`` traces
     every primitive at every pixel; it is there to check that culling
     changes no bit."""
-    global launches
     n_views = len(cfg.views)
     p = cfg.trace_h * cfg.trace_w
     n = scene.shape[0]
@@ -563,7 +561,7 @@ def render_kuka_cuda(cfg: RenderConfig, scene, cam: CameraTensors, out=None,
             n_views, int(cull), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"render3d kernel launch failed: CUDA error {err}")
-    launches += 1
+    trace.count("render3d.launches")
     return out
 
 

@@ -59,10 +59,13 @@ from srl_tpu_torch.agents.registry import resolve_policy_class
 from srl_tpu_torch.core.device import resolve_device
 from srl_tpu_torch.core.env import take_rows
 from srl_tpu_torch.experiments import train as train_cli
-from srl_tpu_torch.ops import render2d, render3d
+from srl_tpu_torch.ops import launches, reset_launches
 from srl_tpu_torch.parallel import distributed, shard_ppo_state
+from srl_tpu_torch.utils import trace
 
-KERNELS = {"render2d": render2d, "render3d": render3d}
+# The mesh's spans: the world's and dp group's collectives, the tp group's.
+COLLECTIVES = ("mesh.all_reduce", "mesh.all_gather", "mesh.any")
+TP_COLLECTIVES = ("mesh.tp_all_reduce", "mesh.tp_all_gather")
 # The algos whose state shard_ppo_state lays out (with an lstm policy: the
 # recurrent PPO2, A2C and ACER), and the loss each update reports under
 # ``loss_metric`` (every scalar metric is kept too).
@@ -169,24 +172,39 @@ def train(agent, mesh, seed: int, updates: int) -> dict:
     seconds and collective seconds (the tp
     group's apart), the final whole flat parameters, the state's MB and the
     kernels' launches while training (the counts set to 0 after the initial
-    reset) and the first gradient of each site (``grad_probe``)."""
+    reset) and the first gradient of each site (``grad_probe``). The
+    tracer's detail mode is on while it trains, so that the collectives'
+    spans are their own time (``parallel.mesh.Mesh``)."""
+    was_detailed = trace.detail()
+    trace.enable()
+    try:
+        return _train(agent, mesh, seed, updates)
+    finally:
+        if not was_detailed:
+            trace.disable()
+
+
+def _train(agent, mesh, seed: int, updates: int) -> dict:
     agent.n_updates = updates
     agent.grad_probe = {}
     gen = torch.Generator(device=agent.device).manual_seed(seed)
-    for module in KERNELS.values():
-        module.launches = 0
+    reset_launches()
     state = agent.init_state(gen, seed)
-    init_launches = {k: m.launches for k, m in KERNELS.items()}
+    init_launches = launches()
     params0 = torch.cat([v.reshape(-1) for v in state.params.values()]).cpu()
     if mesh is not None:
         state = shard_ppo_state(state, mesh)
         if agent.device.type == "cuda":
             torch.cuda.empty_cache()  # the whole batch's state (ACER: its store) is gone
-    for module in KERNELS.values():
-        module.launches = 0
+    reset_launches()
     metric = LOSS_METRIC.get(agent.name, "pg_loss")
     losses, seconds, collective_s, tp_collective_s, scalars = [], [], [], [], {}
-    clock = lambda: (0.0, 0.0) if mesh is None else (mesh.seconds, mesh.tp_seconds)
+
+    def clock():
+        spent = trace.totals()["seconds"]
+        return (sum(spent.get(k, 0.0) for k in COLLECTIVES),
+                sum(spent.get(k, 0.0) for k in TP_COLLECTIVES))
+
     for _ in range(updates):
         _sync(agent.device)
         t0, (c0, tp0) = time.perf_counter(), clock()
@@ -210,7 +228,7 @@ def train(agent, mesh, seed: int, updates: int) -> dict:
             "leaves": [(k, v.numel()) for k, v in whole.items()],
             "param_sq": float(params.double().square().sum()),
             "rows": int(state.obs.shape[0]), "init_launches": init_launches,
-            "launches": {k: m.launches for k, m in KERNELS.items()},
+            "launches": launches(),
             "mean_reward_per_step": float(metrics["mean_reward_per_step"])}
 
 

@@ -38,11 +38,13 @@ index; ``any`` goes over the world.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from srl_tpu_torch.core.device import host_tensor
+from srl_tpu_torch.utils import trace
 
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
@@ -64,10 +66,12 @@ class Mesh:
     sits at ``(r // tp, r % tp)``. ``dp_group`` holds the ranks of this
     rank's column (``group`` itself when tp is 1, None when dp is 1: a
     reduction over one rank is no collective), ``tp_group`` those of its row
-    (``group`` when dp is 1, None when tp is 1). ``seconds`` counts the time
-    spent in the world's and the dp group's collectives, ``tp_seconds`` in
-    the tp group's (a card is synchronized before each, so that the time is
-    the collective's own)."""
+    (``group`` when dp is 1, None when tp is 1). Each collective is a span
+    of ``utils/trace`` (``mesh.all_reduce``, ``mesh.all_gather``,
+    ``mesh.any``, ``mesh.tp_all_reduce``, ``mesh.tp_all_gather``) and counts
+    ``mesh.collectives`` and its input's ``mesh.bytes``; in the tracer's
+    detail mode a card is synchronized before and after each, so that the
+    span is the collective's own time."""
 
     group: object  # a torch.distributed ProcessGroup, or a backend such as ProcessGroupGloo
     dp: int
@@ -75,8 +79,6 @@ class Mesh:
     rank: int
     dp_group: object = None
     tp_group: object = None
-    seconds: float = 0.0
-    tp_seconds: float = 0.0
 
     @property
     def shape(self) -> dict:
@@ -100,67 +102,67 @@ class Mesh:
 
     # ---- collectives, each through one of the mesh's groups -----------------
     @staticmethod
-    def _run(t: torch.Tensor, start) -> float:
-        """Seconds of the collective ``start()`` on ``t``, waited for."""
-        if t.is_cuda:
+    def _run(name: str, t: torch.Tensor, start) -> None:
+        """The collective ``start()`` on ``t``, waited for, traced as the
+        span ``name`` (synchronized around in detail mode)."""
+        trace.count("mesh.collectives")
+        trace.count("mesh.bytes", t.numel() * t.element_size())
+        timed = t.is_cuda and trace.detail()
+        if timed:
             torch.cuda.current_stream(t.device).synchronize()
-        t0 = time.perf_counter()
-        start().wait()
-        if t.is_cuda:
-            torch.cuda.current_stream(t.device).synchronize()
-        return time.perf_counter() - t0
+        with trace.span(name):
+            start().wait()
+            if timed:
+                torch.cuda.current_stream(t.device).synchronize()
 
-    def _all_reduce(self, group, t: torch.Tensor, op: str) -> float:
+    def _all_reduce(self, name: str, group, t: torch.Tensor, op: str) -> None:
         opts = dist.AllreduceOptions()
         opts.reduceOp = _REDUCE_OPS[op]
-        return self._run(t, lambda: group.allreduce([t], opts))
+        self._run(name, t, lambda: group.allreduce([t], opts))
 
-    def _all_gather(self, group, t: torch.Tensor, dim: int) -> Tuple[torch.Tensor, float]:
+    def _all_gather(self, name: str, group, t: torch.Tensor, dim: int) -> torch.Tensor:
         t = t.contiguous()
         outs = [torch.empty_like(t) for _ in range(group.size())]
-        seconds = self._run(t, lambda: group.allgather([outs], [t]))
-        return torch.cat(outs, dim), seconds
+        self._run(name, t, lambda: group.allgather([outs], [t]))
+        return torch.cat(outs, dim)
 
     def all_reduce_(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """``t`` reduced over the dp group, in place."""
         if self.dp_group is not None:
-            self.seconds += self._all_reduce(self.dp_group, t, op)
+            self._all_reduce("mesh.all_reduce", self.dp_group, t, op)
         return t
 
     def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """The dp group's ``t`` concatenated in rank order along ``dim``."""
         if self.dp_group is None:
             return t
-        out, seconds = self._all_gather(self.dp_group, t, dim)
-        self.seconds += seconds
-        return out
+        return self._all_gather("mesh.all_gather", self.dp_group, t, dim)
 
     def tp_all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the tp group, in place."""
         if self.tp_group is not None:
-            self.tp_seconds += self._all_reduce(self.tp_group, t, "sum")
+            self._all_reduce("mesh.tp_all_reduce", self.tp_group, t, "sum")
         return t
 
     def tp_all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """The tp group's ``t`` concatenated in tp-index order along dim 0."""
         if self.tp_group is None:
             return t
-        out, seconds = self._all_gather(self.tp_group, t, 0)
-        self.tp_seconds += seconds
-        return out
+        return self._all_gather("mesh.tp_all_gather", self.tp_group, t, 0)
 
     def any(self, flags: torch.Tensor) -> bool:
         """Whether any rank has a true entry in ``flags``: one all-reduce of
-        one int over the world, read on the host."""
+        one int over the world, read on the host (``sync.mesh.any``)."""
         flag = flags.any().to(torch.int32).reshape(1)
-        self.seconds += self._all_reduce(self.group, flag, "max")
-        return bool(flag)
+        self._all_reduce("mesh.any", self.group, flag, "max")
+        with trace.sync("mesh.any"):
+            return bool(flag)
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:
         """The mean of every entry of ``x`` over the dp group's ranks (one
         all-reduce of the sum and the count)."""
         packed = torch.stack([x.sum().to(torch.float32),
-                              torch.tensor(float(x.numel()), device=x.device)])
+                              host_tensor(float(x.numel()), device=x.device)])
         total, count = self.all_reduce_(packed)
         return total / count
 
@@ -169,7 +171,7 @@ class Mesh:
         on the dp group's ranks, two all-reduces: the count and the sum, then
         the squared deviations from the global mean."""
         x = x.to(torch.float32)
-        count = torch.tensor([float(x.shape[0])], device=x.device)
+        count = host_tensor([float(x.shape[0])], device=x.device)
         packed = self.all_reduce_(torch.cat([count, x.sum(0).reshape(-1)]))
         count = packed[0]
         mean = (packed[1:] / count).reshape(x.shape[1:])
