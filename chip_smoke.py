@@ -19,13 +19,23 @@ Phases, each reported on its own lines; any failure exits non-zero:
    into one output as earlier versions were timed) and its twin with CUDA
    events at its main path's shape, and compute the bound from the work
    these inputs need (render3d: the (pixel, primitive) pairs its culling
-   rectangles keep);
+   rectangles keep); then conv1's two kernels (csrc/conv1.cu): the forward
+   (with and without the mask of the double backward) and the weight
+   gradient against their plain twins on uint8 and float32 frames at the
+   main paths' shapes and at odd ones (forward within one bf16 unit of the
+   output's scale, gradients within 1e-4, a repeated call bit-equal), each
+   timed at 224x224x3 (N=256, 8,192) and the folded 112x112x3 (N=1,024,
+   32,768) beside its byte bound, its twin and the cuDNN call it replaced
+   (``library_ms``), and one PPO2 update of MobileRobot 224x224 (256 envs)
+   and of Kuka 112x112 (1,024 envs) launching the forward exactly 129 + 16
+   and the weight gradient 16 times;
 4. drive the main paths through the training CLI, each with the launch
    counts set to 0 just before and read just after, and check their
    outputs: PPO2 on KukaButtonGymEnv-v0 from raw pixels (256 envs, render
    scale 2, coarse observations, 2 updates), PPO2 on MobileRobotGymEnv-v0
    from 224x224 raw pixels (256 envs, 3 updates), and the ground-truth
-   quickstart (4096 envs, 2 updates);
+   quickstart (4096 envs, 2 updates); the two pixel runs launch conv1's
+   forward exactly 145 and its weight gradient 16 times an update;
 5. drive the SRL workflow through its three CLIs, each step with the launch
    counts set to 0 just before and read just after: record a MobileRobot
    dataset (32 envs, 32 episodes of 64 frames, 224x224x3; render2d), train
@@ -73,15 +83,18 @@ Phases, each reported on its own lines; any failure exits non-zero:
    default config), through the training CLI with the counts set to 0 just
    before each run: 9a, ACER with the Nature CNN on the Kuka pixel path for
    6 iterations of 20 x 256 steps (render3d exactly 121 launches; 4 replay
-   updates in each of iterations 4-6 from its 10.1 GB segment store; every
+   updates in each of iterations 4-6 from its 10.1 GB segment store; conv1's
+   forward 20 + 2 and its weight gradient 1 an iteration, 2 and 1 more a
+   replay update; every
    logged loss finite), its saved ``acer`` model reloaded and acting as the
    trained agent does on two steps of 8 Kuka frames; 9b, RecurrentACER with
    ``--policy cnnlstm`` there for 5 iterations (render3d exactly 101; replays
    in iterations 4-5), its ``acer_lstm`` model reloaded and acting as the
    trained agent with a ``dones`` mask; 9c, DQN on MobileRobot 224x224
    pixels for 2 chunks of 64 x 256 steps (render2d exactly 129 launches, 32
-   TD updates, a target copy wherever the global step modulo 500 is below
-   256), its ``deepq`` model reloaded and acting greedily as the trained
+   TD updates, conv1's forward once a step and 3 times a TD update, its
+   weight gradient once a TD update, a target copy wherever the global
+   step modulo 500 is below 256), its ``deepq`` model reloaded and acting greedily as the trained
    agent;
 10. the last five agents at the reference's widths, each agent's default
    config, through the training CLI with the counts set to 0 just before
@@ -112,7 +125,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
    SAC's continuous Kuka run of 10a (65); 11e the mixed Kuka + Omnirobot
    run of step 6 (the pod rebuilt, render3d 72 for its Kuka half and the
    strip); 11f the MobileRobot SRL serving run of step 5 ([N, 3] encoder
-   states, render2d 72). Each reloaded agent acts as the trained one, and
+   states, render2d 72). conv1 launches 2 x 64 times in each replay of a
+   discrete pixel policy (the action and ``--plot``'s probabilities), 64 in
+   SAC's, none in 11f. Each reloaded agent acts as the trained one, and
    every return is finite. Then, over the smoke's own log root: a pipeline
    grid of 2 seeds of the quickstart, a Hyperband search (``--max-eval 3``)
    on MobileRobot ground truth, plots, aggregate_plots, compare_plots and
@@ -190,7 +205,10 @@ Phases, each reported on its own lines; any failure exits non-zero:
    losses, 13b's bars (the loss within the curve bar: pg_loss, TRPO's kl,
    ACER's entropy; the parameters within a tenth of their step; 15h, whose
    ranks run the one-process shapes, the one-update bar), and each rank's
-   launches exactly n_steps an update (at N=128; N=256 in 15h).
+   launches exactly n_steps an update (at N=128; N=256 in 15h); in 15c
+   (each rank and the one process) and 15h, conv1's weight gradient
+   exactly 16 an update and its forward 39 to 57 (``trpo_conv1``: the
+   line search's trials vary).
 
 The line before the last is a JSON object with each kernel's numbers, the
 last ``{"ok": true, "device": {...}}``. Needs the card and the rest of the
@@ -218,9 +236,10 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores and
-# HBM bandwidth.
+# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
+# bf16 on them (dense), and HBM bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 # Timing writes into outputs that together hold more than twice the L2.
 ROTATE_BYTES = 128 << 20
@@ -358,6 +377,194 @@ def render2d_bound_ms(env, n) -> tuple:
     return bound_ms(flops, out_bytes + in_bytes)
 
 
+# conv1 on the main paths, (H, W, C, k, N): MobileRobot's 224x224x3 frames
+# (8x8 stride 4) at a rollout step's 256 and a minibatch of 8,192; Kuka's
+# 112x112x3 traces (the 2x upsample folded in: 4x4 stride 2) at 1,024 and
+# 32,768. Then odd shapes and deep frame stacks (the first-person view's 6
+# channels x 4; RGB x 15, which both kernels take at 224x224 in two passes
+# of 23 channels, the last with a zero channel) for the comparison only.
+CONV1_CASES = [(224, 224, 3, 8, 256), (224, 224, 3, 8, 8192), (112, 112, 3, 4, 1024),
+               (112, 112, 3, 4, 32768)]
+CONV1_ODD = [(37, 41, 3, 8, 5), (29, 35, 6, 4, 7), (40, 36, 12, 8, 3), (224, 224, 6, 8, 16),
+             (224, 224, 24, 8, 16), (112, 112, 24, 4, 16), (224, 224, 45, 8, 4)]
+# The weight gradient against float32 autograd, as a relative norm: sound
+# runs read 1e-7 to 4.0e-5 (the larger with float32 frames, where cuDNN's
+# float32 reference is the less exact side); losing one block's partial
+# sum fails every uint8 case of the gpu test.
+CONV1_GRAD_RTOL = 1e-4
+# PPO2's update at 128 steps, 4 minibatches and 4 epochs: a forward for each
+# rollout step and the last value, one forward and one weight gradient a
+# minibatch.
+CONV1_PER_UPDATE = {"conv1": 128 + 1 + 16, "conv1_wgrad": 16}
+
+
+def ppo2_conv1(updates: int, n_steps: int = 128, minibatches: int = 4, epochs: int = 4) -> dict:
+    """conv1's launches in ``updates`` PPO2 updates: a forward for each
+    rollout step and the last value, a forward and a weight gradient a
+    minibatch and epoch."""
+    return {"conv1": updates * (n_steps + 1 + minibatches * epochs),
+            "conv1_wgrad": updates * minibatches * epochs}
+
+
+def trpo_conv1(accepted: list, n_steps: int) -> dict:
+    """conv1's launches in TRPO updates (the default config), ``accepted``
+    each update's line_search_accepted: {"conv1_wgrad": n, "conv1": (least,
+    most)}. An update runs a forward for each rollout step and the last
+    value, the old policy's, the surrogate's and the KL's (each of these two
+    with a weight gradient, the KL's differentiable), one masked forward and
+    one weight gradient for each Fisher-vector product (cg_iters + 1), the
+    surrogate before the line search, one or two forwards for each trial
+    (the KL only where the surrogate improved), the surrogate and KL at the
+    step taken, and a forward and a weight gradient for each value step."""
+    from srl_tpu_torch.agents.trpo import TRPOConfig
+
+    cfg = TRPOConfig()
+    fixed = n_steps + 1 + 3 + (cfg.cg_iters + 1) + 1 + 2 + cfg.vf_iters
+    # Trials: accepted at i, i + 2 to 2 i + 2; none accepted, ls_steps to 2 ls_steps.
+    least = sum(fixed + (2 if a else cfg.ls_steps) for a in accepted)
+    most = sum(fixed + 2 * cfg.ls_steps for _ in accepted)
+    return {"conv1": (least, most),
+            "conv1_wgrad": len(accepted) * (2 + cfg.cg_iters + 1 + cfg.vf_iters)}
+
+
+def hold_conv1(what: str, launches: dict, expected: dict) -> dict:
+    """conv1's launches of a run against ``expected`` (a count, or a (least,
+    most) range); returns the run's counts."""
+    got = {k: launches[k] for k in expected}
+    for k, want in expected.items():
+        lo, hi = want if isinstance(want, tuple) else (want, want)
+        if not lo <= got[k] <= hi:
+            raise AssertionError(f"{what}: {k} launched {got[k]} times, not {want}")
+    log(f"[main] {what}: conv1 launches {got}, expected {expected}")
+    return got
+
+
+def conv1_bound_ms(h, w, c, k, n, wgrad: bool) -> tuple:
+    """The least time of conv1's forward (or weight gradient) on the card:
+    its bf16 tensor-core operations, against the frames read once, the bf16
+    output written once (the weight gradient reads it and its gradient) and
+    the weight."""
+    from srl_tpu_torch.ops import conv1
+
+    ho, wo = conv1.out_hw(h, w, k, conv1.GEOMETRY[k])
+    flops = 2 * n * ho * wo * 32 * k * k * c
+    n_bytes = n * h * w * c + n * ho * wo * 32 * 2 * (2 if wgrad else 1) + 32 * (k * k * c + 1) * 4
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, n_bytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", n_bytes
+
+
+def conv1_kernels(torch, dev, train) -> dict:
+    """Step 3's conv1 part: the kernels against their twins, their times and
+    the launches of one PPO2 update in each cell's shape."""
+    import torch.nn.functional as F
+
+    from srl_tpu_torch import ops
+    from srl_tpu_torch.ops import conv1
+
+    torch.backends.cudnn.allow_tf32 = False
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def inputs(h, w, c, k, n, float_frames=False):
+        frames = torch.randint(0, 256, (n, h, w, c), device=dev, dtype=torch.uint8, generator=gen)
+        if float_frames:
+            frames = frames.float() + torch.rand(frames.shape, device=dev, generator=gen)
+        weight = torch.randn((32, c, k, k), device=dev, generator=gen) * (2 / (k * k * c)) ** 0.5
+        return frames, weight, torch.randn(32, device=dev, generator=gen) * 0.1
+
+    worst = {"fprop_ulps": 0.0, "masked_ulps": 0.0, "dw_rel": 0.0, "db_rel": 0.0}
+    for h, w, c, k, n in [(*case[:4], min(case[4], 1024)) for case in CONV1_CASES] + CONV1_ODD:
+        s = conv1.GEOMETRY[k]
+        for float_frames in (False, True):
+            frames, weight, bias = inputs(h, w, c, k, n, float_frames)
+            out = conv1.fprop_cuda(frames, weight, bias, s)
+            masked = conv1.fprop_cuda(frames, weight, -bias, s, mask=out)
+            g = torch.randn(out.shape, device=dev, generator=gen).to(bf16)
+            dw, db = conv1.wgrad_cuda(frames, out, g, k, s)
+            again = conv1.fprop_cuda(frames, weight, bias, s), conv1.wgrad_cuda(frames, out, g, k, s)
+            torch.cuda.synchronize()
+            ulps = {}
+            for name, got, want in (
+                    ("fprop_ulps", out, conv1.fprop_plain(frames, weight, bias, s)),
+                    ("masked_ulps", masked, conv1.fprop_plain(frames, weight, -bias, s, mask=out))):
+                scale = want.float().abs().max().item()
+                unit = 2.0 ** (math.floor(math.log2(scale)) - 7)
+                ulps[name] = (got.float() - want.float()).abs().max().item() / unit
+            x = conv1._scaled(frames).float()
+            gm = torch.where(out > 0, g, 0).permute(0, 3, 1, 2).float()
+            _, dw_ref, db_ref = torch.ops.aten.convolution_backward(
+                gm, x, weight, [32], [s, s], [0, 0], [1, 1], False, [0, 0], 1, [False, True, True])
+            rel = {"dw_rel": ((dw - dw_ref).norm() / dw_ref.norm()).item(),
+                   "db_rel": ((db - db_ref).norm() / db_ref.norm()).item()}
+            same = (torch.equal(again[0], out) and torch.equal(again[1][0], dw)
+                    and torch.equal(again[1][1], db))
+            log(f"[compare] conv1 {h}x{w}x{c} k{k} N={n} {'float32' if float_frames else 'uint8'}: "
+                f"forward {ulps['fprop_ulps']:.3f} bf16 units of the output's scale from the "
+                f"twin, masked {ulps['masked_ulps']:.3f}; dW {rel['dw_rel']:.2e}, db "
+                f"{rel['db_rel']:.2e} from float32; repeated calls bit-equal: {same}")
+            for key, v in {**ulps, **rel}.items():
+                worst[key] = max(worst[key], v)
+            if max(ulps.values()) > 1.0 or max(rel.values()) > CONV1_GRAD_RTOL or not same:
+                raise AssertionError(f"conv1 kernels disagree with their twins at {h}x{w}x{c} "
+                                     f"k{k} N={n}: {ulps} {rel}, repeatable {same}")
+
+    times = []
+    for h, w, c, k, n in CONV1_CASES:
+        s = conv1.GEOMETRY[k]
+        frames, weight, bias = inputs(h, w, c, k, n)
+        out = conv1.fprop_cuda(frames, weight, bias, s)
+        g = torch.randn(out.shape, device=dev, generator=gen).to(bf16)
+        xb, wb, bb = conv1._scaled(frames), weight.to(bf16), bias.to(bf16)
+        gm = torch.where(out > 0, g, 0).permute(0, 3, 1, 2)
+        iters = max(3, min(200, int(2e9 / (n * h * w * c))))
+        row = {"shape": [h, w, c, k, n]}
+        for what, kernel, plain, library in (
+                ("fprop", lambda: conv1.fprop_cuda(frames, weight, bias, s),
+                 lambda: conv1.fprop_plain(frames, weight, bias, s),
+                 lambda: F.conv2d(xb, wb, bb, stride=s)),
+                ("wgrad", lambda: conv1.wgrad_cuda(frames, out, g, k, s),
+                 lambda: conv1.wgrad_plain(frames, out, g, k, s),
+                 lambda: torch.ops.aten.convolution_backward(
+                     gm, xb, wb, [32], [s, s], [0, 0], [1, 1], False, [0, 0], 1,
+                     [False, True, True]))):
+            bound, by, n_bytes = conv1_bound_ms(h, w, c, k, n, what == "wgrad")
+            ms = time_ms(kernel, iters)
+            row[what] = dict(ms=ms, bound_ms=bound, bound_by=by, share=bound / ms,
+                             plain_ms=time_ms(plain, max(3, iters // 4)),
+                             library_ms=time_ms(library, max(3, iters // 4)))
+            r = row[what]
+            log(f"[time] conv1 {what} {h}x{w}x{c} k{k} N={n}: kernel {ms:.4f} ms "
+                f"({r['share']:.1%} of the bound {bound:.4f} ms, {by}; "
+                f"{n_bytes / ms / 1e9:.3f} TB/s), twin {r['plain_ms']:.4f} ms, the cuDNN "
+                f"call alone (library_ms) {r['library_ms']:.4f} ms")
+        times.append(row)
+        del frames, out, g, xb, gm
+        torch.cuda.empty_cache()
+
+    launches = {}
+    for env_id, options, n_envs in (
+            ("MobileRobotGymEnv-v0", dict(srl_model="raw_pixels"), 256),
+            ("KukaButtonGymEnv-v0", dict(srl_model="raw_pixels", render_scale=2,
+                                         coarse_obs=True), 1024)):
+        cls = train.resolve_policy_class("ppo2", "cnn")
+        agent = cls(env=train.make_with_options(env_id, options), num_envs=n_envs, policy="cnn",
+                    config=cls.config_class(n_steps=128, nminibatches=4, noptepochs=4),
+                    device=dev)
+        gen_env = agent._start(5)
+        state = agent.init_state(gen_env, 5)
+        ops.reset_launches()
+        state, _ = agent.train_iteration(state, gen_env)
+        torch.cuda.synchronize()
+        got = {k: ops.launches()[k] for k in CONV1_PER_UPDATE}
+        log(f"[main] conv1 launches in one PPO2 update of {env_id} ({n_envs} envs): {got}")
+        if got != CONV1_PER_UPDATE:
+            raise AssertionError(f"{env_id}: conv1 launched {got}, not {CONV1_PER_UPDATE}")
+        launches[env_id] = got
+        del agent, state
+        torch.cuda.empty_cache()
+    return {"worst": worst, "times": times, "launches": launches}
+
+
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
     """Device time per call. The stream first sleeps for 50 ms, so that the
     host has queued every launch before the first one runs and host-side
@@ -398,8 +605,11 @@ def sass_counts(text: str) -> dict:
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = next((k for k in ("render3d_kernel", "render2d_kernel") if k in m.group(1)),
-                      m.group(1))
+            fn = next((k for k in ("render3d_kernel", "render2d_kernel", "conv1_fprop_kernel",
+                                   "conv1_wgrad_kernel", "conv1_wgrad_reduce")
+                       if k in m.group(1)), m.group(1))
+            if fn.startswith("conv1_") and fn != "conv1_wgrad_reduce":
+                fn += "<uint8>" if "IhE" in m.group(1) else "<float>"
             counts[fn] = {"instructions": 0, **{k: 0 for k in SASS_CLASSES}}
             continue
         m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
@@ -415,7 +625,7 @@ def sass_counts(text: str) -> dict:
 def build_kernels(cuda_build) -> None:
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
-    names = ("render3d", "render2d")
+    names = ("render3d", "render2d", "conv1")
     with ThreadPoolExecutor(len(names)) as pool:
         paths = dict(zip(names, pool.map(cuda_build.build, names)))
     for name in names:
@@ -425,7 +635,7 @@ def build_kernels(cuda_build) -> None:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
-    log(f"[build] both kernels in {time.perf_counter() - t0:.1f} s")
+    log(f"[build] {len(names)} sources in {time.perf_counter() - t0:.1f} s")
     for name in names:
         for fn, c in sass_counts(cuda_build.sass(name)).items():
             log(f"[sass] {fn}: {c['instructions']} instructions, "
@@ -1084,6 +1294,13 @@ def replay_agents(torch, train) -> dict:
                 f"on two steps of 8 Kuka frames: {acts}; loss_q by iteration "
                 + ", ".join(f"{e['loss_q']:.4g}" for e in entries))
             out[step.split()[0]] = launches[kernel]
+            if cls is ACER:
+                # An iteration: a forward each step; the update from its
+                # segment and each replay, a forward with grad, the
+                # average policy's forward and a weight gradient.
+                out["9a_conv1"] = hold_conv1(step, launches, {
+                    "conv1": sum(20 + 2 * (1 + r) for r in replays),
+                    "conv1_wgrad": sum(1 + r for r in replays)})
             trained.agent = saved = None  # the segment store's 10 GB
         torch.cuda.empty_cache()
 
@@ -1112,6 +1329,11 @@ def replay_agents(torch, train) -> dict:
             f"steps of 8 MobileRobot frames: {acts}; td_loss by chunk "
             + ", ".join(f"{e['td_loss']:.4g}" for e in entries))
         out["9c"] = launches["render2d"]
+        # A greedy forward each vector step; a TD update's online forward with
+        # grad, the online and the target networks' on next_obs, a weight
+        # gradient.
+        out["9c_conv1"] = hold_conv1("9c", launches, {"conv1": n_steps + 3 * updates,
+                                                      "conv1_wgrad": updates})
     return out
 
 
@@ -1270,6 +1492,13 @@ REPLAYS = [
 ]
 
 
+# conv1's forwards a replay step: the action's, and with a discrete action
+# space the action probabilities ``--plot`` records; the SRL run's policy
+# reads states, not frames.
+ENJOY_CONV1_PER_STEP = {"kuka": 2, "mobile": 2, "lstm": 2, "sac": 1, "mixed": 2,
+                        "mobile srl": 0}
+
+
 def enjoy_expected(enjoy, render: bool) -> int:
     """Launches of the kernel that draws a replay's env: the reset, each of
     ENJOY_STEPS steps, and with --render a frame every FRAME_EVERY steps
@@ -1323,6 +1552,7 @@ def replays(torch, render2d, render3d) -> dict:
         seconds = time.perf_counter() - t0
         launches = ops.launches()
         expected = {k: enjoy_expected(enjoy, render) if k == kernel else 0 for k in launches}
+        expected["conv1"] = ENJOY_CONV1_PER_STEP[name] * ENJOY_STEPS
         if launches != expected:
             raise AssertionError(f"{what}: launches {launches}, not {expected}")
         returns = result["episode_returns"]
@@ -1597,7 +1827,8 @@ def srl_service(torch, train, render2d) -> int:
         _, launches, _ = drive(torch, train, argv,
                                "12a the service's encoder (SRLEncodedEnv) 256 envs",
                                obs_shape=(3,))
-    expected = {"render2d": 257, "render3d": 0}
+    # The policy reads the encoder's 3-d states: no conv1.
+    expected = {"render2d": 257, "render3d": 0, "conv1": 0, "conv1_wgrad": 0}
     if launches != expected:
         raise AssertionError(f"12a: launches {launches}, not {expected}")
     if kept["calls"] != {"render": 257, "observe": 257}:
@@ -2016,6 +2247,12 @@ def agent_ranks(torch, card: str) -> dict:
     torch.cuda.empty_cache()
     _, out["15h"] = gloo_ranks(torch, trpo_argv, "15h TRPO, Kuka pixels, dp1 x tp2", card,
                                "render3d", dp_launches(trpo_argv), one=ones["15c"])
+    n_steps = flag(trpo_argv, "--n-steps")
+    out["conv1"] = {
+        run: [hold_conv1(f"{run} rank {r['rank']}", r["launches"],
+                         trpo_conv1(r["metrics"]["line_search_accepted"], n_steps))
+              for r in ([ones["15c"]] if run == "15c one" else out[run.split()[0]])]
+        for run in ("15c one", "15c", "15h")}
     return out
 
 
@@ -2100,17 +2337,23 @@ def main() -> int:
         f"{n2d * h2d * w2d * 3} bytes out); no single PyTorch call computes this function, "
         f"so library_ms is null")
 
+    conv1_report = conv1_kernels(torch, dev, train)
+
     # 4. The main paths, each with the counts set to 0 just before it.
-    kuka_seconds, kuka_launches, _ = drive(torch, train, KUKA_ARGS,
-                                           "KukaButtonGymEnv-v0 raw_pixels 256 envs",
-                                           keep="kuka")
+    kuka_seconds, kuka_launches, entries = drive(torch, train, KUKA_ARGS,
+                                                 "KukaButtonGymEnv-v0 raw_pixels 256 envs",
+                                                 keep="kuka")
     if kuka_launches["render3d"] <= 0:
         raise AssertionError("the Kuka pixel path never launched the render3d kernel")
-    _, mobile_launches, _ = drive(torch, train, MOBILE_ARGS,
-                                  "MobileRobotGymEnv-v0 raw_pixels 224x224 256 envs",
-                                  keep="mobile")
+    conv1_main = {"kuka": hold_conv1("4 Kuka pixel PPO2", kuka_launches,
+                                     ppo2_conv1(len(entries)))}
+    _, mobile_launches, entries = drive(torch, train, MOBILE_ARGS,
+                                        "MobileRobotGymEnv-v0 raw_pixels 224x224 256 envs",
+                                        keep="mobile")
     if mobile_launches["render2d"] <= 0:
         raise AssertionError("the MobileRobot pixel path never launched the render2d kernel")
+    conv1_main["mobile"] = hold_conv1("4 MobileRobot pixel PPO2", mobile_launches,
+                                      ppo2_conv1(len(entries)))
     _, _, entries = drive(torch, train, QUICKSTART_ARGS,
                           "MobileRobotGymEnv-v0 ground_truth 4096 envs")
     log("[main] quickstart mean reward per env step, by update: "
@@ -2258,6 +2501,21 @@ def main() -> int:
         "bound_ms": r2_bound,
         "bound_by": r2_by,
         "library_ms": None,
+    }, {
+        "name": "conv1",
+        "route": "cuda",
+        "source": "srl_tpu_torch/csrc/conv1.cu",
+        "replaces": None,
+        "launches_per_update": conv1_report["launches"],
+        "kuka_launches": conv1_main["kuka"],
+        "mobile_launches": conv1_main["mobile"],
+        "acer_launches": replay_launches["9a_conv1"],
+        "dqn_launches": replay_launches["9c_conv1"],
+        "dp_trpo_one_launches": dp_agents["conv1"]["15c one"],
+        "dp_trpo_launches": dp_agents["conv1"]["15c"],
+        "tp_trpo_launches": dp_agents["conv1"]["15h"],
+        "max_err": conv1_report["worst"],
+        "times": conv1_report["times"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -82,7 +82,7 @@ def plant(fault: str, fp32_convs: bool) -> None:
         def forward(self, x):
             x = (x.to(torch.float32) / 255.0).permute(0, 3, 1, 2)
             x = x.contiguous(memory_format=torch.channels_last)
-            x = F.relu(self.c1(x))
+            x = F.relu(self.c1.conv(x))
             x = F.relu(policies._bf16_conv(self.c2, x))
             x = F.relu(policies._bf16_conv(self.c3, x))
             x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)

@@ -157,6 +157,17 @@ def compute_gae(rewards, values, dones, last_value, gamma: float, lam: float):
     return advantages, advantages + values
 
 
+def moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean, standard deviation with ddof 0) of every entry of ``x`` in two
+    passes, as ``jnp.mean`` and ``jnp.std`` compute them and as
+    ``parallel.mesh.Mesh.moments`` does over its ranks (on one rank, bit for
+    bit: a one-rank mesh normalizes advantages as no mesh does)."""
+    x = x.reshape(-1)
+    count = torch.full((), float(x.shape[0]), dtype=torch.float32, device=x.device)
+    mean = x.sum(0) / count
+    return mean, torch.sqrt(torch.square(x - mean).sum(0) / count)
+
+
 def explained_variance(y_pred: torch.Tensor, y_true: torch.Tensor, mesh=None) -> torch.Tensor:
     """1 - var(y_true - y_pred) / var(y_true), NaN where var(y_true) is 0;
     with ``mesh``, over the flat batches of every rank of the dp group."""

@@ -65,7 +65,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from srl_tpu_torch.agents.base import BaseRLAgent, PPOState, episode_metrics
-from srl_tpu_torch.agents.common import collect_rollout, compute_gae, explained_variance
+from srl_tpu_torch.agents.common import (collect_rollout, compute_gae, explained_variance,
+                                         moments)
 from srl_tpu_torch.bridge import Record
 from srl_tpu_torch.core.device import resolve_device
 from srl_tpu_torch.core.env import state_map
@@ -242,7 +243,7 @@ class PPO2(BaseRLAgent):
         entropy = mean(dist.entropy())
 
         if adv_stats is None:
-            adv_stats = (advantages.mean(), advantages.std(unbiased=False))
+            adv_stats = moments(advantages)
         advantages = (advantages - adv_stats[0]) / (adv_stats[1] + 1e-8)
         ratio = torch.exp(logp - old_logp)
         pg1 = -advantages * ratio

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from srl_tpu_torch.agents.base import BaseRLAgent, PPOState, episode_metrics, global_mean
-from srl_tpu_torch.agents.common import collect_rollout, compute_gae
+from srl_tpu_torch.agents.common import collect_rollout, compute_gae, moments
 from srl_tpu_torch.agents.ppo import ADAM_STATE, EMPTY_STATE
 from srl_tpu_torch.bridge import Record
 from srl_tpu_torch.core.device import resolve_device
@@ -140,7 +140,8 @@ class TRPO(BaseRLAgent):
         cfg = self.config
         b_obs, b_act, b_logp, b_adv, b_ret = data
         if mesh is None or mesh.dp == 1:
-            b_adv = (b_adv - b_adv.mean()) / (b_adv.std(unbiased=False) + 1e-8)
+            adv_mean, adv_std = moments(b_adv)
+            b_adv = (b_adv - adv_mean) / (adv_std + 1e-8)
         else:
             adv_mean, adv_var, _ = mesh.moments(b_adv)
             b_adv = (b_adv - adv_mean) / (torch.sqrt(adv_var) + 1e-8)

@@ -2,9 +2,11 @@
 
 ``mlp`` (2x64 tanh) and ``cnn`` (Nature CNN). Images arrive as NHWC uint8,
 are scaled by /255 in float32 and run through the convolutions and fc512 in
-bfloat16; parameters and the torso output stay float32. Parameter names and
-layouts are PyTorch's (Linear [out, in], conv OIHW); ``srl_tpu_torch.bridge``
-maps them to and from the Flax tree of the reference.
+bfloat16; parameters and the torso output stay float32. The scaling, conv1
+and its ReLU are one op (``ops/conv1``: CUDA kernels on the card). Parameter
+names and layouts are PyTorch's (Linear [out, in], conv OIHW);
+``srl_tpu_torch.bridge`` maps them to and from the Flax tree of the
+reference.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch.nn.functional as F
 
 from srl_tpu_torch.core.spaces import Discrete, Space
 from srl_tpu_torch.models.distributions import Categorical, DiagGaussian
+from srl_tpu_torch.ops import conv1 as conv1_op
 
 ORTHO_GAIN = math.sqrt(2)
 
@@ -70,7 +73,9 @@ class _Conv1(nn.Module):
         conv(upsample2x(x), k=8, s=4) == conv(x, k'=4, s=2),
         k'[m, n] = sum of k[2m + {0, 1}, 2n + {0, 1}]
 
-    replaces the upsample; gradients flow through the block sum."""
+    replaces the upsample; gradients flow through the block sum. The
+    forward is the stem from frames (``ops/conv1.conv1_stem``); ``conv`` is
+    the plain convolution of an input already scaled."""
 
     def __init__(self, n_in: int, input_scale: int = 1):
         super().__init__()
@@ -87,11 +92,20 @@ class _Conv1(nn.Module):
         o, c = self.weight.shape[:2]
         return self.weight.reshape(o, c, 4, 2, 4, 2).sum((3, 5))
 
-    def forward(self, x):
+    @property
+    def stride(self) -> int:
+        return 4 if self.input_scale == 1 else 2
+
+    def forward(self, frames):
+        """relu(conv1(frames / 255)) as bf16 NCHW in channels_last memory,
+        from NHWC uint8 ``frames``."""
+        out = conv1_op.conv1_stem(frames, self.folded_weight(), self.bias, self.stride)
+        return out.permute(0, 3, 1, 2)
+
+    def conv(self, x):
         """``x`` NCHW in its compute dtype."""
-        stride = 4 if self.input_scale == 1 else 2
         return F.conv2d(x, self.folded_weight().to(x.dtype),
-                        self.bias.to(x.dtype), stride=stride)
+                        self.bias.to(x.dtype), stride=self.stride)
 
 
 class NatureCnnTorso(nn.Module):
@@ -115,9 +129,7 @@ class NatureCnnTorso(nn.Module):
 
     def forward(self, x):
         bf16 = torch.bfloat16
-        x = (x.to(torch.float32) / 255.0).to(bf16)
-        x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        x = F.relu(self.c1(x))
+        x = self.c1(x)
         x = F.relu(_bf16_conv(self.c2, x))
         x = F.relu(_bf16_conv(self.c3, x))
         # Flatten in NHWC order, as the reference does, so that fc's weight is

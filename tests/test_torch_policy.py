@@ -102,7 +102,7 @@ def test_conv1_fold_identity_and_reference_in_float32():
     with torch.no_grad():
         conv.bias.copy_(torch.from_numpy(rng.normal(0, 0.1, 32).astype(np.float32)))
         xt = torch.from_numpy(x).permute(0, 3, 1, 2)
-        folded = conv(xt)
+        folded = conv.conv(xt)
         up = xt.repeat_interleave(2, 2).repeat_interleave(2, 3)
         direct = F.conv2d(up, conv.weight, conv.bias, stride=4)
     np.testing.assert_allclose(folded.numpy(), direct.numpy(), atol=1e-5, rtol=0)
