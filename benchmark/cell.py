@@ -7,7 +7,13 @@ class comes from the agent registry, and the window calls the agent's
 ``train_iteration`` in a loop, as ``BaseRLAgent._run`` does. The benchmark
 makes the weights from the seed on the device (the reference's layout and
 scales) and hands them to the program through its fine-tuning start
-(``agent.pretrained``)."""
+(``agent.pretrained``).
+
+On a dp mesh (``mesh``, the program's ``parallel.mesh.Mesh``; ``ranks``, the
+harness's own collectives, ``ranks.py``) each rank builds the agent for the
+global batch, lays its first state out on the mesh (``shard_ppo_state``)
+and records its own rows; every rank runs the same updates, and rank 0's
+clock ends the window."""
 from __future__ import annotations
 
 import time
@@ -60,13 +66,17 @@ def weights(cell, agent, seed: int, device) -> dict:
     return nature_cnn.init_params(shapes, seed, device)
 
 
-def start(agent, params0, seed: int, recorder=None):
+def start(agent, params0, seed: int, recorder=None, mesh=None):
     """The program's first state from ``seed``: its generator, the reset
-    batch and the benchmark's weights."""
+    batch and the benchmark's weights (laid out on ``mesh``)."""
     gen = agent._start(seed)
     agent.pretrained = types.SimpleNamespace(params=params0, obs_norm=None)
     state = agent.init_state(gen, seed)
     agent.pretrained = None
+    if mesh is not None:
+        from srl_tpu_torch.parallel import shard_ppo_state
+
+        state = shard_ppo_state(state, mesh)
     if recorder is not None:
         recorder.note_start(state)
     return state, gen
@@ -79,24 +89,35 @@ def frame_steps(seed: int, n_steps: int) -> list:
     return sorted(torch.randperm(n_steps, generator=gen)[:k].tolist())
 
 
-def first_update(agent, params0, seed: int, gae):
+def rows(agent, mesh):
+    """[lo, hi) of the env batch that this process steps (None: all)."""
+    return None if mesh is None else mesh.env_slice(agent.vec_env.num_envs)
+
+
+def first_update(agent, params0, seed: int, gae, mesh=None):
     """(state after the first update, its generator, the recorder of it);
     ``gae``: the config's (module, attribute) of the GAE the update calls."""
-    rec = Recorder(agent, frame_steps(seed, agent.config.n_steps), tuple(gae))
+    rec = Recorder(agent, frame_steps(seed, agent.config.n_steps), tuple(gae),
+                   rows=rows(agent, mesh))
     with rec:
-        state, gen = start(agent, params0, seed, rec)
+        state, gen = start(agent, params0, seed, rec, mesh)
         state, _ = agent.train_iteration(state, gen)
     if not rec.complete():
         raise RuntimeError("the first update did not go through the recorded calls")
     return state, gen, rec
 
 
-def window(agent, state, gen, seconds: float, device):
+def window(agent, state, gen, seconds: float, device, ranks=None):
     """Whole updates until ``seconds`` have passed, then a synchronise:
     (state, updates, seconds from the start to the end of the last, the
     host's time at the end of each update from the start, for a look: the
-    update's own synchronisations keep the host close behind the device)."""
+    update's own synchronisations keep the host close behind the device).
+    With ``ranks`` the window starts and ends on a barrier of the ranks
+    after each has synchronised its card, and every rank stops after the
+    update in which rank 0's clock passed ``seconds``."""
     sync(device)
+    if ranks is not None:
+        ranks.barrier()
     marks = []
     t0 = time.perf_counter()
     updates = 0
@@ -105,9 +126,14 @@ def window(agent, state, gen, seconds: float, device):
         updates += 1
         elapsed = time.perf_counter() - t0
         marks.append(elapsed)
-        if elapsed >= seconds:
+        done = elapsed >= seconds
+        if ranks is not None:
+            done = ranks.rank0(done)
+        if done:
             break
     sync(device)
+    if ranks is not None:
+        ranks.barrier()
     return state, updates, time.perf_counter() - t0, marks
 
 
@@ -118,19 +144,24 @@ def check_updates_cap(cell) -> int:
     return -(-(env.max_steps + 1) // cell.traffic["n_steps"])
 
 
-def check_update(agent, state, gen, gae, cap: int):
+def check_update(agent, state, gen, gae, cap: int, mesh=None, ranks=None):
     """(state, the record of the first update after the window in which an
     episode ended, the updates run): recorded updates of the program's own
-    state, at most ``cap``; the last one's record where none held an end."""
+    state, at most ``cap``; the last one's record where none held an end.
+    With ``ranks``, the first in which an episode ended on every rank."""
     for k in range(1, cap + 1):
-        rec = Recorder(agent, FRAME_STEPS, tuple(gae), rollout_only=True)
+        rec = Recorder(agent, FRAME_STEPS, tuple(gae), rollout_only=True,
+                       rows=rows(agent, mesh))
         with rec:
             rec.note_start(state)
             state, _ = agent.train_iteration(state, gen)
         if not rec.complete():
             raise RuntimeError("the update after the window did not go through the "
                                "recorded calls")
-        if rec.dones():
+        ended = rec.dones() > 0
+        if ranks is not None:
+            ended = ranks.all(ended)
+        if ended:
             break
     return state, rec, k
 

@@ -18,6 +18,15 @@ class) and restores them:
 * ``one_epoch``: the update runs one epoch of its ``noptepochs``;
 * ``half_perm``: the epochs' permutations are drawn over half of the
   batch's rows, each row twice.
+
+``MESH_FAULTS`` hold only on a dp mesh (a run of ``ranks.py``), planted on
+every rank:
+
+* ``no_allreduce``: each rank steps on its own rows' gradient (the
+  exchange between the cards left out);
+* ``drop_rank``: the last rank's gradient is left out of the sum;
+* ``reward_last_rank``, ``frame_last_rank``: ``reward`` and ``frame``
+  planted on the last rank only, so that the check must read every rank.
 """
 from __future__ import annotations
 
@@ -151,3 +160,33 @@ def half_perm(agent):
 FAULTS = {"frozen": frozen, "half_batch": half_batch, "action": action, "frame": frame,
           "reward": reward, "advantage": advantage, "target": target, "reset": reset,
           "skip_minibatch": skip_minibatch, "one_epoch": one_epoch, "half_perm": half_perm}
+
+
+def no_allreduce(agent):
+    return Patches().set(agent, "reduce_grads",
+                         lambda orig: lambda grads, mesh: orig(grads, None))
+
+
+def drop_rank(agent):
+    def make(orig):
+        def reduce_grads(grads, mesh):
+            if mesh is not None and mesh.dp_index == mesh.dp - 1:
+                grads = {k: torch.zeros_like(g) for k, g in grads.items()}
+            return orig(grads, mesh)
+        return reduce_grads
+    return Patches().set(agent, "reduce_grads", make)
+
+
+def _on_last_rank(fault):
+    """``fault`` planted on the last rank of the program's world only."""
+    def plant(agent):
+        world = torch.distributed
+        if world.is_initialized() and world.get_rank() == world.get_world_size() - 1:
+            return fault(agent)
+        return Patches()
+    return plant
+
+
+MESH_FAULTS = {"no_allreduce": no_allreduce, "drop_rank": drop_rank,
+               "reward_last_rank": _on_last_rank(reward),
+               "frame_last_rank": _on_last_rank(frame)}

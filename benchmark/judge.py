@@ -77,12 +77,28 @@ make every later number swing with the seed:
   together. The norms of a leaf cannot tell a gradient of half the
   minibatch (after the global-norm clip, about as long) from the whole
   one's; the difference can.
+* ``grad_norm_gap``: the first gradient as the program hands it to its
+  optimizer step, before the global-norm clip, all leaves together: the gap
+  between its norm and the reference's, over the reference's. After the clip
+  a gradient of every rank's rows and one of a single rank's (or of three of
+  four) point the same way at the same length, and neither ``grad_gap`` nor
+  ``grad_diff`` can tell them apart; before it, the sum of a missing rank's
+  rows is missing from the length.
 
 A step that the program did not take makes the numbers read from it
 ``MISSING``.
 
 ``control`` puts the reference computed in float8 in the program's place:
-its outputs are judged as the program's are."""
+its outputs are judged as the program's are.
+
+On a dp mesh (``ranks``, the harness's collectives, ``ranks.py``) each
+rank's reference follows that rank's own rows from the noise that rank drew,
+and the optimizer steps are of the global minibatch: each rank's reference
+computes the loss terms and gradient sums of the rows it owns, with the
+minibatch's global advantage mean and std, and the harness adds them over
+the ranks, apart from the program's collectives, so that a rank's gradient
+missing from the program's all-reduce shows. The program's first losses
+are its ranks' shares, added the same way. Each number is the worst rank's."""
 from __future__ import annotations
 
 import math
@@ -94,7 +110,8 @@ from reference import vec_env as ref_env
 from record import FOLLOWED_STEPS
 
 NUMBERS = ("env_gap", "frame_gap", "logp_gap", "value_gap", "action_gap", "gae_gap",
-           "schedule_gap", "mb_logp_gap", "loss_gap", "grad_gap", "update_gap", "grad_diff")
+           "schedule_gap", "mb_logp_gap", "loss_gap", "grad_gap", "update_gap", "grad_diff",
+           "grad_norm_gap")
 # The reading of a number that has nothing to compare (a row or a reset
 # that the program did not produce): far above any limit, and plain JSON.
 MISSING = 1e30
@@ -175,13 +192,41 @@ def policy(params, frames, input_scale, precision):
     return tuple(torch.cat([o[k] for o in outs]) for k in range(3))
 
 
+def owned(idx, ranks):
+    """The flat rows ``t * n + env`` of this rank's batch that the global
+    flat indices ``idx`` (``t * N + env``) name, in ``idx``'s order: the
+    rows whose env lies in the rank's ``[lo, hi)`` (all of ``idx`` without
+    ``ranks``)."""
+    if ranks is None:
+        return idx
+    lo, hi, n = ranks.rows
+    env = idx % n
+    keep = (env >= lo) & (env < hi)
+    return ((idx // n) * (hi - lo) + env - lo)[keep]
+
+
+def minibatch_stats(adv, ranks):
+    """(mean, std with ddof 0) of a minibatch's advantages, over every rank's
+    rows of it (two sums over the ranks: the mean, then the squared
+    deviations from it)."""
+    if ranks is None:
+        return adv.mean(), adv.std(unbiased=False)
+    a = adv.double()
+    total = ranks.sum(torch.stack([a.sum(), a.new_tensor(float(a.numel()))]))
+    mean = total[0] / total[1]
+    var = ranks.sum(((a - mean) ** 2).sum()) / total[1]
+    return mean.float(), var.sqrt().float()
+
+
 def reference_pass(rec, cfg, traffic, params0, frames, rewards, dones, precision,
-                   advantages=None):
+                   advantages=None, ranks=None):
     """The reference's outputs of the first update: log-probabilities of the
     program's actions, logits, values and their head's magnitude,
     advantages, returns, the first three losses and their terms' magnitude,
     the first gradient and the change after three steps. The steps'
-    advantages (flat) are ``advantages``, or the reference's own."""
+    advantages (flat) are ``advantages``, or the reference's own. With
+    ``ranks``, the losses, gradients and changes are the global
+    minibatch's (module docstring); the rest are this rank's rows'."""
     algo = {**cfg["algo_config"], **{k: traffic[k] for k in
                                      ("n_steps", "nminibatches", "noptepochs")}}
     scale = cfg.get("input_scale", 1)
@@ -207,12 +252,12 @@ def reference_pass(rec, cfg, traffic, params0, frames, rewards, dones, precision
     losses, sizes, g1, mb_logp = [], [], None, []
     for k, idx in enumerate(steps):
         lr = algo["learning_rate"]
-        adv_mb = fl_adv[idx]
-        stats = (adv_mb.mean(), adv_mb.std(unbiased=False))
+        idx = owned(idx, ranks)
+        stats = minibatch_stats(fl_adv[idx], ranks)
         loss = torch.zeros((), device=idx.device)
         size = torch.zeros((), device=idx.device)
         grads = {k2: torch.zeros_like(v) for k2, v in params.items()}
-        for i in range(0, mb, BLOCK):
+        for i in range(0, idx.shape[0], BLOCK):
             rows = idx[i:i + BLOCK]
             leaves = {k2: v.detach().requires_grad_(True) for k2, v in params.items()}
             lg, vp = nature_cnn.forward(leaves, fl_frames[rows], scale, precision)
@@ -225,8 +270,15 @@ def reference_pass(rec, cfg, traffic, params0, frames, rewards, dones, precision
             for k2, g in zip(leaves, torch.autograd.grad(part, list(leaves.values()))):
                 grads[k2] += g
             loss = loss + part.detach()
+        if ranks is not None:
+            loss, size = ranks.sum(torch.stack([loss, size]))
+            summed = ranks.sum(torch.cat([g.reshape(-1) for g in grads.values()]))
+            parts = torch.split(summed, [g.numel() for g in grads.values()])
+            grads = {k2: p.view_as(g) for (k2, g), p in zip(grads.items(), parts)}
         losses.append(loss)
         sizes.append(size)
+        if k == 0:
+            g1_norm = _norm(grads)
         grads = ppo.clip_by_global_norm(grads, algo["max_grad_norm"])
         if k == 0:
             g1 = grads
@@ -235,6 +287,7 @@ def reference_pass(rec, cfg, traffic, params0, frames, rewards, dones, precision
             "value_scale": v_scale.view(t1 + 1, n)[:t1], "adv": adv, "ret": ret,
             "gae_values": (values[:t1], values[t1]), "advantages": flat(adv),
             "losses": torch.stack(losses), "loss_scale": torch.stack(sizes), "g1": g1,
+            "g1_norm": g1_norm,
             "mb_logp": torch.cat(mb_logp),
             "delta": {k: params[k] - params0[k] for k in params}}
 
@@ -249,16 +302,18 @@ def gae_gap(adv, ret, values, last_value, rewards, dones, algo) -> float:
                _over(float((ret - ref_ret).abs().max()), _rms(ref_ret)))
 
 
-def schedule_gap(rec, algo) -> float:
+def schedule_gap(rec, algo, dp: int = 1) -> float:
     """Whether the recorded update ran its whole schedule (module
-    docstring): 0 where it did."""
+    docstring): 0 where it did. On a mesh of ``dp`` ranks the permutations
+    are of the global batch, ``dp`` times this rank's rows, and each epoch's
+    losses see this rank's rows."""
     epochs, mbs = algo["noptepochs"], algo["nminibatches"]
     _, logp, values, _, _ = rec.data
     rows = logp.shape[0]
     perms = rec.perms
-    if perms.shape != (epochs, rows):
+    if perms.shape != (epochs, rows * dp):
         return 1.0
-    whole = torch.arange(rows, device=perms.device)
+    whole = torch.arange(rows * dp, device=perms.device)
     if not all(torch.equal(p.sort().values, whole) for p in perms):
         return 1.0
     gap = abs(rec.n_opt_steps - epochs * mbs) / (epochs * mbs)
@@ -302,6 +357,7 @@ def program_outputs(rec, params0, t1, n):
             "values": values.view(t1, n), "adv": adv.view(t1, n), "ret": ret.view(t1, n),
             "gae_values": (g["values"], g["last_value"]),
             "losses": torch.stack(rec.losses) if rec.losses else None,
+            "g1_norm": rec.grad_norm,
             "g1": None if rec.mu1 is None else
             {k: v / (1 - ppo.ADAM_B1) for k, v in rec.mu1.items()},
             "delta": None if rec.params3 is None else
@@ -310,6 +366,11 @@ def program_outputs(rec, params0, t1, n):
 
 def control_outputs(ctl, gumbel):
     return dict(ctl, actions=torch.argmax(ctl["logits"] + gumbel, -1))
+
+
+def _norm(tree: dict) -> float:
+    """The norm of every leaf of ``tree`` together, in float64."""
+    return math.sqrt(sum(float(v.double().square().sum()) for v in tree.values()))
 
 
 def _rms(x):
@@ -359,11 +420,13 @@ def numbers(out, ref, gumbel, rewards, dones, algo) -> dict:
                                   float(ref["loss_scale"][0])),
         "grad_gap": lambda: _leaf_gap(out["g1"], ref["g1"], list(ref["g1"])),
         "update_gap": lambda: _leaf_gap(out["delta"], ref["delta"], moving),
+        "grad_norm_gap": lambda: _over(abs(out["g1_norm"] - ref["g1_norm"]), ref["g1_norm"]),
         "grad_diff": lambda: _over(float(torch.linalg.vector_norm(flat(out["g1"]) - g_ref)),
                                    float(torch.linalg.vector_norm(g_ref))),
     }
     # A step that the program did not take reads ``MISSING``.
-    needs = {"loss_gap": "losses", "grad_gap": "g1", "update_gap": "delta", "grad_diff": "g1"}
+    needs = {"loss_gap": "losses", "grad_gap": "g1", "update_gap": "delta", "grad_diff": "g1",
+             "grad_norm_gap": "g1_norm"}
     return {
         "logp_gap": float((out["logp"] - ref["logp"]).abs().max()),
         "mb_logp_gap": mb_gap,
@@ -374,12 +437,20 @@ def numbers(out, ref, gumbel, rewards, dones, algo) -> dict:
     }
 
 
-def judge(rec, cell, params0, control: bool = False, details=None, check=None) -> dict:
+def judge(rec, cell, params0, control: bool = False, details=None, check=None,
+          ranks=None) -> dict:
     """Every number of ``NUMBERS`` for the recorded first update: the
     program's, or with ``control`` the float8 reference's in its place;
     with ``check``, the record of an update after the window, its env,
     frames and GAE too (and ``resets_checked``, the episode ends in it).
-    ``details``, a dict, gets each leaf's norms and each step's losses."""
+    ``details``, a dict, gets each leaf's norms and each step's losses.
+    With ``ranks`` (a mesh: every rank calls it), the worst rank's numbers
+    (module docstring)."""
+    values = _judge(rec, cell, params0, control, details, check, ranks)
+    return values if ranks is None else ranks.worst(values)
+
+
+def _judge(rec, cell, params0, control, details, check, ranks) -> dict:
     cfg, traffic = cell.config, cell.traffic
     algo = {**cfg["algo_config"], **{k: traffic[k] for k in
                                      ("n_steps", "nminibatches", "noptepochs")}}
@@ -387,20 +458,31 @@ def judge(rec, cell, params0, control: bool = False, details=None, check=None) -
     torch.backends.cudnn.allow_tf32 = False
     env = ref_env.make_env(cfg["env_id"], cfg["env_options"])
     env_gap, states, rewards, dones = follow_env(rec, cfg, env)
-    if rewards is None:
+    followed = rewards is not None
+    if ranks is not None:
+        # The ranks take the reference's steps together, or none does.
+        followed = ranks.all(followed)
+    if not followed:
         return dict.fromkeys(NUMBERS, MISSING)
     frames = render_all(cfg, env, states)
+    dp = 1 if ranks is None else traffic["dp"]
     gap = {"env_gap": env_gap, "frame_gap": frame_gap(rec, lambda i: frames[i]),
-           "schedule_gap": 0.0 if control else schedule_gap(rec, algo)}
+           "schedule_gap": 0.0 if control else schedule_gap(rec, algo, dp)}
     t1, n = len(rec.steps), rewards.shape[1]
     gumbel = -torch.log(-torch.log(torch.stack(rec.u)))
     if control:
         out = control_outputs(reference_pass(rec, cfg, traffic, params0, frames, rewards,
-                                             dones, "fp8"), gumbel)
+                                             dones, "fp8", ranks=ranks), gumbel)
     else:
         out = program_outputs(rec, params0, t1, n)
+        if ranks is not None:
+            # The program's losses are its ranks' shares of the global ones.
+            if ranks.all(out["losses"] is not None):
+                out["losses"] = ranks.sum(out["losses"])
+            else:
+                out["losses"] = None
     ref = reference_pass(rec, cfg, traffic, params0, frames, rewards, dones, "fp32",
-                         out["advantages"])
+                         out["advantages"], ranks)
     if details is not None and all(out[k] is not None for k in ("g1", "delta", "losses")):
         details.update(leaves=leaf_norms(out, ref),
                        losses=[out["losses"].tolist(), ref["losses"].tolist(),

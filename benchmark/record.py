@@ -14,10 +14,16 @@ window's memory is the program's own.
 ``Recorder(agent, rollout_only=True)`` records an update after the window
 the same way, but only its env steps, frames at the steps where an episode
 ended, and GAE: the check of the auto-reset and of GAE's masking at episode
-ends, which the first update (no episode ends in it) cannot see."""
+ends, which the first update (no episode ends in it) cannot see.
+
+On a data-parallel mesh (``rows``, the rank's ``[lo, hi)`` of the env
+batch) the program draws every random number for the whole batch and steps
+its own rows: the recorder keeps the noise of those rows, so that the record
+is of the rows this rank steps."""
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -41,9 +47,10 @@ class Recorder(Patches):
     """The record of one update; ``gae`` is (module, attribute) of the GAE
     function that the agent's update calls."""
 
-    def __init__(self, agent, frame_steps, gae, rollout_only=False):
+    def __init__(self, agent, frame_steps, gae, rollout_only=False, rows=None):
         super().__init__()
         self.agent = agent
+        self.rows = rows
         self.gae_target = gae
         # The steps whose frames are kept; after the window, the first
         # ``frame_steps`` steps in which an episode ended.
@@ -62,6 +69,7 @@ class Recorder(Patches):
         self.losses = []
         self.mb = []  # (logits, actions) of the loss's rows before the first optimizer step
         self.seen = []  # per loss: (old log-probabilities, old values) of the rows it saw
+        self.grad_norm = None  # the first gradient handed to the optimizer step, its norm
         self.mu1 = None
         self.params3 = None
         self.n_opt_steps = 0
@@ -116,6 +124,10 @@ class Recorder(Patches):
             return orig_update(params, opt_state, data, perms, mesh)
 
         def optimizer_step_(params, grads, opt_state, mesh=None):
+            if self.grad_norm is None:
+                # Before the step: it clips ``grads`` in place.
+                self.grad_norm = math.sqrt(sum(float(g.double().square().sum())
+                                               for g in grads.values()))
             out = orig_opt(params, grads, opt_state, mesh)
             self.n_opt_steps += 1
             if self.n_opt_steps == 1:
@@ -150,20 +162,27 @@ class Recorder(Patches):
             self.set(owner, name, lambda _, fn=fn: fn)
         return self
 
+    def _own(self, noise: dict) -> dict:
+        """A copy of the noise of the rows this process steps."""
+        if self.rows is None:
+            return _clone(noise)
+        lo, hi = self.rows
+        return {k: v[lo:hi].detach().clone() for k, v in noise.items()}
+
     def _wrap_noise(self, env):
         orig_reset, orig_step = env.draw_reset_noise, env.draw_step_noise
 
         def draw_reset_noise(gen, n):
             noise = orig_reset(gen, n)
             if self.reset_noise is None and not self.rollout_only:
-                self.reset_noise = _clone(noise)
+                self.reset_noise = self._own(noise)
             else:
-                self._pending["reset_noise"] = _clone(noise)
+                self._pending["reset_noise"] = self._own(noise)
             return noise
 
         def draw_step_noise(gen, n):
             noise = orig_step(gen, n)
-            self._pending["step_noise"] = _clone(noise)
+            self._pending["step_noise"] = self._own(noise)
             return noise
 
         self.set(env, "draw_reset_noise", lambda _: draw_reset_noise)

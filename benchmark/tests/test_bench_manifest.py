@@ -23,6 +23,27 @@ def test_every_cell_of_the_manifest_loads():
             assert m["moves"] in names
 
 
+def test_a_pending_cell_loads_from_its_cell_file():
+    bench = json.loads((manifest.REPO / "BENCHMARK.json").read_text())
+    listed = {w["name"] for w in bench["workloads"]}
+    pending = sorted(p.stem for p in (manifest.BENCH_DIR / "cells").glob("*.json")
+                     if "pending" in json.loads(p.read_text()))
+    assert pending == ["kuka112.ppo2.dp4.e4096"]
+    for name in pending:
+        assert name not in listed
+        cell = manifest.load_cell(name)
+        assert cell.chips == 4 and cell.traffic["dp"] == 4
+        assert set(cell.limits) == set(judge.NUMBERS)
+        names = {m["name"] for m in cell.end_to_end}
+        assert names == {"env_steps_per_s.dp4", "setup_s"}
+        for m in cell.per_layer:
+            assert callable(manifest.metric_reader(m["name"]).read)
+            assert m["moves"] in names and m["workloads"] == [name]
+    # The cells of the manifest report none of a pending cell's metrics.
+    for name in listed:
+        assert not any(m["name"].endswith(".dp4") for m in manifest.load_cell(name).per_layer)
+
+
 def test_new_config_cell_and_metric_from_files_alone(tmp_path):
     repo = tmp_path / "repo"
     shutil.copytree(manifest.BENCH_DIR, repo / "benchmark",

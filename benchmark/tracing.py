@@ -46,10 +46,22 @@ class Spans(Patches):
         return call
 
 
+# The kinds of device activity that are work on the card. The profiler also
+# puts ranges of the host's annotations on the device's timeline (the
+# benchmark's ``bench.*`` spans, NCCL's ``nccl:<op>``): those are not work.
+DEVICE_KINDS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
 def _is_device(e) -> bool:
-    """A device operation: the profiler also puts the host's ``record_function``
-    ranges on the device's timeline, and those are not operations."""
-    return e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("bench.")
+    """A device operation: a kernel, a copy or a memset, by the profiler's kind
+    of activity (by its flag of a user annotation where the profiler gives no
+    kind)."""
+    if e.device_type != torch.autograd.DeviceType.CUDA:
+        return False
+    kind = getattr(e, "activity_type", None)
+    if isinstance(kind, str) and kind:
+        return kind in DEVICE_KINDS
+    return not getattr(e, "is_user_annotation", False) and not e.name.startswith("bench.")
 
 
 def _is_kernel(name: str) -> bool:
@@ -69,8 +81,9 @@ def profiled_update(run_update, device) -> dict:
     """Profile one update (``run_update()``): its length in the trace, the
     device's busy time (the union of device operations), device time and calls by
     kernel, kernel launches inside each ``bench.*`` span, the longest idle
-    gaps named by the innermost host operation that was running, and the top
-    device operations."""
+    gaps named by the innermost host operation that was running, the top
+    device operations, and by stream (the profiler's device resource) the
+    union of its operations and their names."""
     sync(device)
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
@@ -80,11 +93,19 @@ def profiled_update(run_update, device) -> dict:
             run_update()
         sync(device)
     events = prof.events()
-    dev = [(e.time_range.start, e.time_range.end, e.name) for e in events if _is_device(e)]
+    dev = [(e.time_range.start, e.time_range.end, e.name,
+            getattr(e, "device_resource_id", None)) for e in events if _is_device(e)]
     host = [e for e in events if e.device_type != torch.autograd.DeviceType.CUDA]
     upd = next(e for e in host if e.name == "bench.update")
     lo, hi = upd.time_range.start, upd.time_range.end
-    dev = [(max(a, lo), min(b, hi), n) for a, b, n in dev if b > lo and a < hi]
+    on_stream = {}
+    for a, b, n, stream in dev:
+        if b > lo and a < hi:
+            on_stream.setdefault(str(stream), []).append((max(a, lo), min(b, hi), n))
+    streams = {sid: {"busy_s": _union((a, b) for a, b, _ in ops) / 1e6,
+                     "names": sorted({n for _, _, n in ops})}
+               for sid, ops in on_stream.items()}
+    dev = [(max(a, lo), min(b, hi), n) for a, b, n, _ in dev if b > lo and a < hi]
     busy_us = _union((a, b) for a, b, _ in dev)
     by_kernel = {}
     for a, b, n in dev:
@@ -106,6 +127,7 @@ def profiled_update(run_update, device) -> dict:
         "spans": spans,
         "device_ops": [[n[:160], us / 1e6] for n, (_, us) in top],
         "idle_gaps": gaps,
+        "streams": streams,
     }
 
 
