@@ -41,8 +41,8 @@ def main(argv=None) -> int:
     p.add_argument("--fault-seeds", type=int, nargs="*", default=[])
     # ``reset`` shows only in an update with episode ends, after the window.
     p.add_argument("--faults", default=None,
-                   help="default: every fault of faults.py but reset (on a mesh, and "
-                        "MESH_FAULTS)")
+                   help="default: every fault of faults.py that the cell can have but "
+                        "reset (on a mesh, and MESH_FAULTS)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--overrides", default=None,
                    help="JSON of traffic entries to replace (a small rehearsal)")
@@ -58,9 +58,12 @@ def main(argv=None) -> int:
                              sys.argv[1:] if argv is None else argv,
                              ranks.world_of(cell.traffic), json.loads(args.options))
         return rc
-    kinds = dict(faults.FAULTS, **(faults.MESH_FAULTS if mesh_cell else {}))
-    names = args.faults.split(",") if args.faults is not None else \
+    kinds = faults.kinds(cell, mesh_cell)
+    names = [f for f in args.faults.split(",") if f] if args.faults is not None else \
         [f for f in kinds if f != "reset"]
+    if set(names) - set(kinds):
+        p.error(f"faults {sorted(set(names) - set(kinds))} are not among the cell's "
+                f"{sorted(kinds)}")
     overrides = json.loads(args.overrides) if args.overrides else None
     comm = mesh = None
     if mesh_cell:
@@ -73,7 +76,7 @@ def main(argv=None) -> int:
         if comm is not None:
             comm.rows = (*driver.rows(agent, mesh), agent.vec_env.num_envs)
         jobs = [("sound", s) for s in args.seeds] + [("control", s) for s in args.control_seeds]
-        jobs += [(f, s) for f in names if f for s in args.fault_seeds]
+        jobs += [(f, s) for f in names for s in args.fault_seeds]
         readings = {}
         for kind, seed in jobs:
             t0 = time.perf_counter()

@@ -5,9 +5,11 @@ The program under test is ``srl_tpu_torch``: its env is built as the
 training CLI builds it (``experiments/train.make_with_options``), its agent
 class comes from the agent registry, and the window calls the agent's
 ``train_iteration`` in a loop, as ``BaseRLAgent._run`` does. The benchmark
-makes the weights from the seed on the device (the reference's layout and
-scales) and hands them to the program through its fine-tuning start
-(``agent.pretrained``).
+makes the weights from the seed on the device with the cell's network
+(``reference/<network>.py``: its layout and scales) and hands the trained
+ones to the program through its fine-tuning start (``agent.pretrained``);
+a frozen stage that lives in the program's env is built into the env and
+handed its leaves by ``handin/<network>.py``.
 
 On a dp mesh (``mesh``, the program's ``parallel.mesh.Mesh``; ``ranks``, the
 harness's own collectives, ``ranks.py``) each rank builds the agent for the
@@ -21,7 +23,6 @@ import types
 
 import torch
 
-from reference import nature_cnn
 from reference import vec_env as ref_env
 from record import Recorder
 from tracing import Spans, profiled_update, sync
@@ -42,7 +43,10 @@ def build(cell, device, overrides=None):
     # float32 (the policy's convolutions and fc512 run in bfloat16).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    env = make_with_options(cfg["env_id"], cfg["env_options"])
+    if cell.handin is None:
+        env = make_with_options(cfg["env_id"], cfg["env_options"])
+    else:
+        env = cell.handin.make_env(cfg, device)
     cls = resolve_policy_class(cfg["algo"], cfg["policy"])
     algo = {**cfg["algo_config"], **{k: traffic[k] for k in
                                      ("n_steps", "nminibatches", "noptepochs")}}
@@ -54,23 +58,36 @@ def build(cell, device, overrides=None):
 
 
 def weights(cell, agent, seed: int, device) -> dict:
-    """The weights of ``seed``, in the reference's layout, after checking
-    that the program's parameters have those names and shapes."""
-    cfg = cell.config
-    shapes = nature_cnn.param_shapes(agent.obs_shape, agent.env.action_space.n,
-                                     cfg.get("input_scale", 1))
+    """Every leaf of ``seed``, in the reference's layout, after checking
+    that the program's policy parameters are the trained leaves, by name and
+    shape, and that the program normalizes observations where the
+    configuration says so; a frozen stage's leaves are handed to the
+    program's env here, before anything records or patches the agent."""
+    cfg, net = cell.config, cell.network
+    shapes = net.param_shapes(cfg)
+    trained = {k: s for k, s in shapes.items() if net.trained(k)}
     program = {k: tuple(v.shape) for k, v in agent.policy.state_dict().items()}
-    if program != shapes or agent.input_scale != cfg.get("input_scale", 1):
+    if program != trained or agent.input_scale != cfg.get("input_scale", 1):
         raise ValueError(f"the program's parameters {program} are not the "
-                         f"reference's {shapes}")
-    return nature_cnn.init_params(shapes, seed, device)
+                         f"reference's {trained}")
+    if agent.normalize_obs != cfg.get("normalize_obs", False):
+        raise ValueError(f"the program normalizes observations: {agent.normalize_obs}; "
+                         f"the configuration: {cfg.get('normalize_obs', False)}")
+    params = net.init_params(shapes, seed, device)
+    frozen = {k: v for k, v in params.items() if not net.trained(k)}
+    if frozen:
+        cell.handin.hand_in(agent, frozen)
+    return params
 
 
 def start(agent, params0, seed: int, recorder=None, mesh=None):
     """The program's first state from ``seed``: its generator, the reset
-    batch and the benchmark's weights (laid out on ``mesh``)."""
+    batch and the trained leaves of ``params0`` (laid out on ``mesh``); the
+    program's normalizer starts fresh."""
     gen = agent._start(seed)
-    agent.pretrained = types.SimpleNamespace(params=params0, obs_norm=None)
+    policy = agent.policy.state_dict()
+    agent.pretrained = types.SimpleNamespace(
+        params={k: v for k, v in params0.items() if k in policy}, obs_norm=None)
     state = agent.init_state(gen, seed)
     agent.pretrained = None
     if mesh is not None:

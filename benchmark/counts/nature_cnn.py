@@ -30,14 +30,16 @@ def forward_flops(frame, n_actions: int, input_scale: int = 1) -> int:
     return sum(layer_flops(frame, n_actions, input_scale))
 
 
-def update_flops(frame, n_actions: int, input_scale: int, num_envs: int, n_steps: int,
-                 noptepochs: int) -> int:
-    """Model FLOPs of one PPO update: the rollout's forward of every step's
-    frames and of the last, then each epoch's forward and backward of the
-    batch; the backward is twice the forward but for conv1, whose input
-    needs no gradient (its weight gradient only)."""
-    layers = layer_flops(frame, n_actions, input_scale)
+def update_flops(cfg: dict, traffic: dict) -> int:
+    """Model FLOPs of one PPO update of one card's envs (``num_envs`` over
+    ``dp``) for the configuration's ``frame``, ``n_actions`` and
+    ``input_scale``: the rollout's forward of every step's frames and of the
+    last, then each epoch's forward and backward of the batch; the backward
+    is twice the forward but for conv1, whose input needs no gradient (its
+    weight gradient only)."""
+    layers = layer_flops(cfg["frame"], cfg["n_actions"], cfg.get("input_scale", 1))
     fwd = sum(layers)
     bwd = 2 * fwd - layers[0]
-    batch = num_envs * n_steps
-    return (batch + num_envs) * fwd + noptepochs * batch * (fwd + bwd)
+    num_envs = traffic["num_envs"] // traffic["dp"]
+    batch = num_envs * traffic["n_steps"]
+    return (batch + num_envs) * fwd + traffic["noptepochs"] * batch * (fwd + bwd)

@@ -27,6 +27,17 @@ every rank:
 * ``drop_rank``: the last rank's gradient is left out of the sum;
 * ``reward_last_rank``, ``frame_last_rank``: ``reward`` and ``frame``
   planted on the last rank only, so that the check must read every rank.
+
+The faults that alter a frame (``FRAME_FAULTS``) apply only where the
+cell's network observes uint8 frames (``kinds``). Where it observes float
+states (ground truth, a frozen encoder's), ``STATE_FAULTS`` hold:
+
+* ``observation``: one env's observation is altered where the env makes
+  it;
+
+and where the configuration normalizes observations, ``NORM_FAULTS``:
+
+* ``stale_norm``: PPO2's running normalizer never updates its statistics.
 """
 from __future__ import annotations
 
@@ -190,3 +201,39 @@ def _on_last_rank(fault):
 MESH_FAULTS = {"no_allreduce": no_allreduce, "drop_rank": drop_rank,
                "reward_last_rank": _on_last_rank(reward),
                "frame_last_rank": _on_last_rank(frame)}
+FRAME_FAULTS = ("frame", "target", "frame_last_rank")
+
+
+def observation(agent):
+    def make(orig):
+        def observe(state):
+            out = orig(state).clone()
+            out[0] += 1.0
+            return out
+        return observe
+    return Patches().set(agent.vec_env.env, "observe", make)
+
+
+def stale_norm(agent):
+    from srl_tpu_torch.core.normalize import RunningNorm
+
+    return Patches().set(RunningNorm, "update",
+                         lambda orig: lambda norm, batch, mesh=None: norm)
+
+
+STATE_FAULTS = {"observation": observation}
+NORM_FAULTS = {"stale_norm": stale_norm}
+
+
+def kinds(cell, mesh_cell: bool) -> dict:
+    """The faults that ``cell`` can have: ``FAULTS``, on a mesh also
+    ``MESH_FAULTS``; those of ``FRAME_FAULTS`` only where its network's
+    observations are frames, ``STATE_FAULTS`` where they are not;
+    ``NORM_FAULTS`` where its configuration normalizes them."""
+    found = dict(FAULTS, **(MESH_FAULTS if mesh_cell else {}))
+    if not cell.network.FRAMES:
+        found = {k: v for k, v in found.items() if k not in FRAME_FAULTS}
+        found.update(STATE_FAULTS)
+    if cell.config.get("normalize_obs", False):
+        found.update(NORM_FAULTS)
+    return found

@@ -10,17 +10,23 @@ the actions are the program's, judged as a served model's tokens are):
   the drawn noise and the program's first state, and between the
   reference's auto-resetting step of each program state (with its action
   and drawn noise) and the program's next state;
-* ``frame_gap``: the largest share, over the frames the program returned at
-  a few steps, of a frame's values that lie more than 2 from the
-  reference's render of the same state;
+* ``frame_gap``: over the observations the program returned at a few
+  steps, against the reference's observation of the same state (the
+  network's ``observe``: the render, or ground truth, or a frozen stage's
+  encoding of the render): for uint8 frames the largest share of a frame's
+  values that lie more than 2 from the reference's; for float observations
+  the widest gap of a step's batch over the root mean square of the
+  reference's;
 * ``logp_gap``: the widest gap between the program's log-probability of
   each action it took and the reference's, over every step and env, the
-  reference's policy run in float32 on its own frames;
+  reference's policy run in float32 on its own observations (normalized as
+  PPO2's running normalizer does, from the same start, where the
+  configuration's ``normalize_obs`` says so: ``reference/normalize.py``);
 * ``value_gap``: the root mean square gap between the program's values
   and the reference's, over the root mean square of the value head's
-  magnitude (the sum of |weight x feature| over its 512 inputs): the values
-  of fresh weights sum terms of either sign, and over their own size a
-  rounding gap swings with the seed;
+  magnitude (the sum of |weight x feature| over its inputs, from the
+  network's ``forward``): the values of fresh weights sum terms of either
+  sign, and over their own size a rounding gap swings with the seed;
 * ``action_gap``: the widest gap by which the action the program took lies
   below the reference's best under the same Gumbel draw;
 * ``gae_gap``: the widest gap between the program's advantages (and
@@ -45,7 +51,8 @@ exactly once (the multisets compared, sorted). It covers the steps past
 the three that the reference follows.
 
 Then the first three optimizer steps, on the program's permutation, from
-the same weights: the reference's loss of each minibatch, its clip and
+the same weights (the network's trained leaves; a frozen stage is only
+observed through): the reference's loss of each minibatch, its clip and
 Adam, on its own frames, log-probabilities and values, with the program's
 advantages (followed from the program's state; ``value_gap`` and
 ``gae_gap`` judge them): the returns are those advantages plus the
@@ -98,14 +105,16 @@ computes the loss terms and gradient sums of the rows it owns, with the
 minibatch's global advantage mean and std, and the harness adds them over
 the ranks, apart from the program's collectives, so that a rank's gradient
 missing from the program's all-reduce shows. The program's first losses
-are its ranks' shares, added the same way. Each number is the worst rank's."""
+are its ranks' shares, added the same way. Each number is the worst rank's.
+A normalizer's statistics over the ranks are not followed yet: such a cell
+is refused."""
 from __future__ import annotations
 
 import math
 
 import torch
 
-from reference import nature_cnn, ppo
+from reference import normalize, ppo
 from reference import vec_env as ref_env
 from record import FOLLOWED_STEPS
 
@@ -161,34 +170,37 @@ def follow_env(rec, cfg, env) -> tuple:
     return gap, states, torch.stack(rewards), torch.stack(dones)
 
 
-def render_all(cfg, env, states) -> torch.Tensor:
-    """uint8 [T + 1, N, H, W, C]: the reference's frame of every state."""
-    env_id = cfg["env_id"]
-    return torch.stack([env.observe(ref_env.state_of(env_id, s)) for s in states])
+def observe(net, env, env_id, state, params):
+    """The program's observation, by the reference, of one state's fields."""
+    return net.observe(env, ref_env.state_of(env_id, state), params)
 
 
-def frame_gap(rec, frame) -> float:
-    """The largest share of one frame's values more than 2 from the
-    reference's (the first state's frames, and those of the recorded
-    steps); ``frame(i)`` is the reference's frames of state ``i``."""
-    pairs = [(rec.obs0, frame(0))] + [(f, frame(t + 1)) for t, f in rec.frames.items()]
+def frame_gap(rec, obs) -> float:
+    """The gap between the program's observations (the first state's, and
+    those of the recorded steps) and the reference's, ``obs(i)`` those of
+    state ``i``: for uint8 frames the largest share of one frame's values
+    more than 2 from the reference's, for float observations the widest gap
+    of a step over the reference's root mean square at that step."""
+    pairs = [(rec.obs0, obs(0))] + [(f, obs(t + 1)) for t, f in rec.frames.items()]
     worst = 0.0
     for prog, ref in pairs:
-        off = (prog.to(ref.device).int() - ref.int()).abs() > 2
-        worst = max(worst, float(off.flatten(1).float().mean(1).max()))
+        if prog.shape != ref.shape:
+            return MISSING
+        if ref.dtype == torch.uint8:
+            off = (prog.to(ref.device).int() - ref.int()).abs() > 2
+            worst = max(worst, float(off.flatten(1).float().mean(1).max()))
+        else:
+            gap = float((prog.to(ref.device).double() - ref.double()).abs().max())
+            worst = max(worst, _over(gap, _rms(ref)))
     return worst
 
 
 @torch.no_grad()
-def policy(params, frames, input_scale, precision):
+def policy(net, params, obs, cfg, precision):
     """(logits [M, A], values [M], the value head's magnitude [M]) of
-    frames [M, ...], in blocks."""
-    w, b = params["vf.weight"][0].abs(), params["vf.bias"].abs()
-    outs = []
-    for i in range(0, frames.shape[0], BLOCK):
-        lg, v, h = nature_cnn.forward(params, frames[i:i + BLOCK], input_scale, precision,
-                                      features=True)
-        outs.append((lg, v, h.abs() @ w + b))
+    observations [M, ...], in blocks."""
+    outs = [net.forward(params, obs[i:i + BLOCK], cfg, precision, magnitude=True)
+            for i in range(0, obs.shape[0], BLOCK)]
     return tuple(torch.cat([o[k] for o in outs]) for k in range(3))
 
 
@@ -218,20 +230,21 @@ def minibatch_stats(adv, ranks):
     return mean.float(), var.sqrt().float()
 
 
-def reference_pass(rec, cfg, traffic, params0, frames, rewards, dones, precision,
+def reference_pass(rec, net, cfg, traffic, params0, frames, rewards, dones, precision,
                    advantages=None, ranks=None):
     """The reference's outputs of the first update: log-probabilities of the
     program's actions, logits, values and their head's magnitude,
     advantages, returns, the first three losses and their terms' magnitude,
-    the first gradient and the change after three steps. The steps'
-    advantages (flat) are ``advantages``, or the reference's own. With
-    ``ranks``, the losses, gradients and changes are the global
-    minibatch's (module docstring); the rest are this rank's rows'."""
+    the first gradient and the change after three steps. ``params0`` are
+    the network's trained leaves, ``frames`` every state's observation as
+    the policy gets it. The steps' advantages (flat) are ``advantages``, or
+    the reference's own. With ``ranks``, the losses, gradients and changes
+    are the global minibatch's (module docstring); the rest are this rank's
+    rows'."""
     algo = {**cfg["algo_config"], **{k: traffic[k] for k in
                                      ("n_steps", "nminibatches", "noptepochs")}}
-    scale = cfg.get("input_scale", 1)
     t1, n = frames.shape[0] - 1, frames.shape[1]
-    logits, values, v_scale = policy(params0, frames.flatten(0, 1), scale, precision)
+    logits, values, v_scale = policy(net, params0, frames.flatten(0, 1), cfg, precision)
     logits = logits.view(t1 + 1, n, -1)
     values = values.view(t1 + 1, n)
     actions = torch.stack([s["action"] for s in rec.steps])
@@ -260,7 +273,7 @@ def reference_pass(rec, cfg, traffic, params0, frames, rewards, dones, precision
         for i in range(0, idx.shape[0], BLOCK):
             rows = idx[i:i + BLOCK]
             leaves = {k2: v.detach().requires_grad_(True) for k2, v in params.items()}
-            lg, vp = nature_cnn.forward(leaves, fl_frames[rows], scale, precision)
+            lg, vp = net.forward(leaves, fl_frames[rows], cfg, precision)
             part, part_size = ppo.minibatch_loss(lg, vp, fl_actions[rows], fl_logp[rows],
                                                  fl_values[rows], fl_adv[rows], fl_ret[rows],
                                                  *stats, mb, algo)
@@ -331,7 +344,7 @@ def schedule_gap(rec, algo, dp: int = 1) -> float:
     return gap
 
 
-def check_numbers(rec, cfg, env, algo) -> dict:
+def check_numbers(rec, net, cfg, env, algo, params0) -> dict:
     """``env_gap``, ``frame_gap`` and ``gae_gap`` of an update after the
     window (``MISSING`` env_gap where no episode ended in it)."""
     gap, states, rewards, dones = follow_env(rec, cfg, env)
@@ -339,10 +352,9 @@ def check_numbers(rec, cfg, env, algo) -> dict:
         return dict.fromkeys(("env_gap", "frame_gap", "gae_gap"), MISSING)
     if not rec.dones():
         gap = MISSING
-    env_id = cfg["env_id"]
-    frame = lambda i: env.observe(ref_env.state_of(env_id, states[i]))
+    obs = lambda i: observe(net, env, cfg["env_id"], states[i], params0)
     g = rec.gae
-    return {"env_gap": gap, "frame_gap": frame_gap(rec, frame),
+    return {"env_gap": gap, "frame_gap": frame_gap(rec, obs),
             "gae_gap": gae_gap(g["adv"], g["ret"], g["values"], g["last_value"], rewards,
                                dones, algo)}
 
@@ -451,11 +463,15 @@ def judge(rec, cell, params0, control: bool = False, details=None, check=None,
 
 
 def _judge(rec, cell, params0, control, details, check, ranks) -> dict:
-    cfg, traffic = cell.config, cell.traffic
+    cfg, traffic, net = cell.config, cell.traffic, cell.network
     algo = {**cfg["algo_config"], **{k: traffic[k] for k in
                                      ("n_steps", "nminibatches", "noptepochs")}}
+    normalized = cfg.get("normalize_obs", False)
+    if normalized and ranks is not None:
+        raise ValueError("a normalizer's statistics over the ranks are not followed yet")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    trained = {k: v for k, v in params0.items() if net.trained(k)}
     env = ref_env.make_env(cfg["env_id"], cfg["env_options"])
     env_gap, states, rewards, dones = follow_env(rec, cfg, env)
     followed = rewards is not None
@@ -464,24 +480,25 @@ def _judge(rec, cell, params0, control, details, check, ranks) -> dict:
         followed = ranks.all(followed)
     if not followed:
         return dict.fromkeys(NUMBERS, MISSING)
-    frames = render_all(cfg, env, states)
+    obs = torch.stack([observe(net, env, cfg["env_id"], s, params0) for s in states])
+    frames = normalize.follow(obs) if normalized else obs
     dp = 1 if ranks is None else traffic["dp"]
-    gap = {"env_gap": env_gap, "frame_gap": frame_gap(rec, lambda i: frames[i]),
+    gap = {"env_gap": env_gap, "frame_gap": frame_gap(rec, lambda i: obs[i]),
            "schedule_gap": 0.0 if control else schedule_gap(rec, algo, dp)}
     t1, n = len(rec.steps), rewards.shape[1]
     gumbel = -torch.log(-torch.log(torch.stack(rec.u)))
     if control:
-        out = control_outputs(reference_pass(rec, cfg, traffic, params0, frames, rewards,
-                                             dones, "fp8", ranks=ranks), gumbel)
+        out = control_outputs(reference_pass(rec, net, cfg, traffic, trained, frames,
+                                             rewards, dones, "fp8", ranks=ranks), gumbel)
     else:
-        out = program_outputs(rec, params0, t1, n)
+        out = program_outputs(rec, trained, t1, n)
         if ranks is not None:
             # The program's losses are its ranks' shares of the global ones.
             if ranks.all(out["losses"] is not None):
                 out["losses"] = ranks.sum(out["losses"])
             else:
                 out["losses"] = None
-    ref = reference_pass(rec, cfg, traffic, params0, frames, rewards, dones, "fp32",
+    ref = reference_pass(rec, net, cfg, traffic, trained, frames, rewards, dones, "fp32",
                          out["advantages"], ranks)
     if details is not None and all(out[k] is not None for k in ("g1", "delta", "losses")):
         details.update(leaves=leaf_norms(out, ref),
@@ -489,7 +506,7 @@ def _judge(rec, cell, params0, control, details, check, ranks) -> dict:
                                ref["loss_scale"].tolist()])
     values = {**gap, **numbers(out, ref, gumbel, rewards, dones, algo)}
     if check is not None:
-        later = check_numbers(check, cfg, env, algo)
+        later = check_numbers(check, net, cfg, env, algo, params0)
         values.update({k: max(values[k], v) for k, v in later.items()},
                       resets_checked=check.dones())
     return values

@@ -3,7 +3,8 @@ checkout, and the files it names, found by name alone.
 
 * a configuration ``<c>``: the file its entry names
   (``configs/<c>.json``): env id and options, policy, algorithm and its
-  config, the network and render kernel whose counts apply;
+  config, whether observations are normalized (``normalize_obs``), the
+  network and render kernel whose counts apply;
 * a traffic mix ``<t>``: ``traffic/<t>.json`` (envs, rollout length,
   minibatches, epochs, the dp x tp mesh);
 * a cell ``<w>``: its ``workloads`` entry, and ``cells/<w>.json`` with the
@@ -13,9 +14,19 @@ checkout, and the files it names, found by name alone.
   ``pending``, until they move into ``BENCHMARK.json``: ``run.py`` runs it
   by name, and no check of the benchmark does;
 * a per-layer metric ``<m>``: the reader ``metrics/<m>.py``;
-* a network's or kernel's counts ``<k>``: ``counts/<k>.py``.
+* a network ``<n>`` (a configuration's ``network``): the plain reference
+  ``reference/<n>.py`` (its leaves, their draw from the seed, the map from
+  the reference env's state to the program's observation, the forward
+  pass: ``reference/__init__.py``), its model FLOPs ``counts/<n>.py``
+  (``update_flops(cfg, traffic)``), and, where a frozen stage of it lives in
+  the program's env, ``handin/<n>.py`` (``make_env(cfg, device)``: the
+  program's env with the stage in it; ``hand_in(agent, frozen)``: the
+  stage's leaves of the seed put in place);
+* a kernel's counts ``<k>``: ``counts/<k>.py``.
 
-Adding any of them takes new files and new entries only."""
+Adding any of them takes new files and new entries only: a new PPO2
+network is a configuration, ``reference/<n>.py``, ``counts/<n>.py``
+(and ``handin/<n>.py`` for a frozen stage), a cell file and entries."""
 from __future__ import annotations
 
 import dataclasses
@@ -38,6 +49,11 @@ class Cell:
     limits: dict
     end_to_end: list
     per_layer: list
+    # The checkout whose files the cell was found in, its network's plain
+    # reference, and its frozen stage's hand-in (None without one).
+    repo: Path = REPO
+    network: object = None
+    handin: object = None
 
 
 def _json(path: Path) -> dict:
@@ -75,16 +91,22 @@ def load_cell(name: str, repo: Path = REPO) -> Cell:
     entry = entries[name]
     configs = {c["name"]: c for c in bench["configs"]}
     cfg_entry = configs[entry["config"]]
+    config = _json(repo / cfg_entry["file"])
+    net = config["network"]
+    handin = bench_dir / "handin" / f"{net}.py"
     return Cell(
         name=name,
         chips=int(entry["chips"]),
         config_name=entry["config"],
-        config=_json(repo / cfg_entry["file"]),
+        config=config,
         traffic_name=entry["traffic"],
         traffic=_json(bench_dir / "traffic" / f"{entry['traffic']}.json"),
         limits=_json(cell_path)["limits"],
         end_to_end=[m for m in bench["end_to_end"] if reports(m, name)],
         per_layer=[m for m in bench["per_layer"] if reports(m, name)],
+        repo=repo,
+        network=load_module(bench_dir / "reference" / f"{net}.py", f"reference.{net}"),
+        handin=load_module(handin, f"handin_{net}") if handin.exists() else None,
     )
 
 

@@ -235,9 +235,16 @@ class MobileRobotEnv:
     def ground_truth(self, state: MobileRobotState) -> torch.Tensor:
         return state.robot_pos[:, : self.ground_truth_dim_()]
 
+    def srl_state(self, state: MobileRobotState) -> torch.Tensor:
+        """The ground-truth observation: the robot's position relative to
+        the target."""
+        return self.ground_truth(state) - self.target_pos(state)
+
     def observe(self, state: MobileRobotState) -> torch.Tensor:
+        if self.srl_model == "ground_truth":
+            return self.srl_state(state)
         if self.srl_model != "raw_pixels" or self.fpv:
-            raise ValueError("the reference renders top-down raw pixels only")
+            raise ValueError("the reference observes ground truth or top-down raw pixels only")
         return self.render_pixels(state)
 
     def render_pixels(self, state: MobileRobotState) -> torch.Tensor:

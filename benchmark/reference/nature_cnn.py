@@ -1,6 +1,8 @@
 """The Nature CNN actor-critic (Mnih et al. 2015; stable-baselines'
 CnnPolicy) in plain float32: 32x8 stride 4, 64x4 stride 2, 64x3 stride 1,
 fc512, ReLU after each, then a value head and a policy head of logits.
+A network of the benchmark's contract (``reference/__init__.py``): every
+leaf is trained, and the program's observation is the env's frame.
 
 Frames arrive as uint8 NHWC and are scaled by 1/255. A frame traced at
 1/``input_scale`` of the network's resolution is upsampled (nearest) to
@@ -19,6 +21,8 @@ import torch.nn.functional as F
 
 CONVS = (("c1", 32, 8, 4), ("c2", 64, 4, 2), ("c3", 64, 3, 1))
 FC = 512
+# The program's observations are uint8 frames.
+FRAMES = True
 
 
 def feature_hw(h: int) -> int:
@@ -27,10 +31,13 @@ def feature_hw(h: int) -> int:
     return h
 
 
-def param_shapes(obs_shape, n_actions: int, input_scale: int = 1) -> dict:
+def param_shapes(cfg: dict) -> dict:
     """{name: shape} of the parameters, weights as PyTorch lays them out
-    ([out, in] and OIHW), for frames of ``obs_shape`` (H, W, C)."""
-    h, w, c = obs_shape
+    ([out, in] and OIHW), for the configuration's traced ``frame`` (H, W,
+    C) at ``input_scale`` and its ``n_actions``."""
+    h, w, c = cfg["frame"]
+    input_scale = cfg.get("input_scale", 1)
+    n_actions = cfg["n_actions"]
     h, w = h * input_scale, w * input_scale
     shapes, n_in = {}, c
     for name, n_out, k, _ in CONVS:
@@ -44,6 +51,17 @@ def param_shapes(obs_shape, n_actions: int, input_scale: int = 1) -> dict:
     shapes["pi.weight"] = (n_actions, FC)
     shapes["pi.bias"] = (n_actions,)
     return shapes
+
+
+def trained(name: str) -> bool:
+    """Whether the optimizer steps leaf ``name``: every leaf."""
+    return True
+
+
+def observe(env, state, params: dict) -> torch.Tensor:
+    """The program's observation of the reference env's ``state``: its
+    frame."""
+    return env.observe(state)
 
 
 def init_params(shapes: dict, seed: int, device) -> dict:
@@ -77,10 +95,12 @@ def _fp8(x: torch.Tensor) -> torch.Tensor:
     return x + (q - x).detach()
 
 
-def forward(params: dict, frames: torch.Tensor, input_scale: int = 1,
-            precision: str = "fp32", features: bool = False):
+def forward(params: dict, frames: torch.Tensor, cfg: dict, precision: str = "fp32",
+            magnitude: bool = False):
     """(logits [N, A], values [N]) of uint8 frames [N, H, W, C]; with
-    ``features``, also the fc512 features [N, 512]."""
+    ``magnitude``, also the value head's magnitude [N]: the sum of |weight
+    x feature| over its 512 inputs, and |bias|."""
+    input_scale = cfg.get("input_scale", 1)
     q = _fp8 if precision == "fp8" else (lambda t: t)
     x = frames.to(torch.float32).div(255.0).permute(0, 3, 1, 2)
     if input_scale > 1:
@@ -92,4 +112,7 @@ def forward(params: dict, frames: torch.Tensor, input_scale: int = 1,
     x = F.relu(F.linear(q(x), q(params["torso.fc.weight"]), params["torso.fc.bias"]))
     values = F.linear(x, params["vf.weight"], params["vf.bias"])[:, 0]
     logits = F.linear(x, params["pi.weight"], params["pi.bias"])
-    return (logits, values, x) if features else (logits, values)
+    if not magnitude:
+        return logits, values
+    w, b = params["vf.weight"][0].abs(), params["vf.bias"].abs()
+    return logits, values, x.abs() @ w + b

@@ -110,7 +110,7 @@ def per_layer(cell, ctx) -> dict:
 
     out = {}
     for m in cell.per_layer:
-        value = manifest.metric_reader(m["name"]).read(ctx)
+        value = manifest.metric_reader(m["name"], cell.repo).read(ctx)
         if value is not None:
             out[m["name"]] = {"value": value, "unit": m["unit"]}
     return out
@@ -191,10 +191,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, overrides=Non
             profile = dict(profile, busy_s=sum(r["busy"][0] for r in theirs) / len(theirs),
                            window_s=sum(r["busy"][1] for r in theirs) / len(theirs))
     if trace:
-        cfg = cell.config
-        flops = manifest.counts(cfg["network"]).update_flops(
-            cfg["frame"], cfg["n_actions"], cfg.get("input_scale", 1),
-            traffic["num_envs"] // traffic["dp"], traffic["n_steps"], traffic["noptepochs"])
+        flops = manifest.counts(cell.config["network"], cell.repo).update_flops(
+            cell.config, traffic)
         ctx = types.SimpleNamespace(cell=cell, spans=spans.seconds, updates=updates,
                                     window_s=window_s, profile=profile, peak_bytes=peak,
                                     flops_per_update=flops, rank_records=rank_records)

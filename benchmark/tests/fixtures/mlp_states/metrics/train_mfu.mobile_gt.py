@@ -1,0 +1,6 @@
+"""``train_mfu`` in the cell of ``mobile_gt``."""
+import manifest
+
+
+def read(ctx):
+    return manifest.metric_reader("train_mfu").read(ctx)

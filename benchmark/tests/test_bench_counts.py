@@ -24,7 +24,11 @@ def test_update_flops_counts_rollout_and_epochs():
     fwd = sum(f)
     n, t, e = 256, 128, 4
     want = (n * t + n) * fwd + e * n * t * (3 * fwd - f[0])
-    assert cnn.update_flops((224, 224, 3), 4, 1, n, t, e) == want
+    cfg = {"frame": [224, 224, 3], "n_actions": 4, "input_scale": 1}
+    traffic = {"num_envs": n, "n_steps": t, "noptepochs": e, "dp": 1}
+    assert cnn.update_flops(cfg, traffic) == want
+    # On a mesh, one card's share of the envs.
+    assert cnn.update_flops(cfg, dict(traffic, num_envs=4 * n, dp=4)) == want
     # About 64 TFLOP an update of the MobileRobot cell.
     assert 60e12 < want < 70e12
 

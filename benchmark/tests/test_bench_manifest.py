@@ -77,3 +77,38 @@ def test_new_config_cell_and_metric_from_files_alone(tmp_path):
     # The cells already there do not report the new metric.
     old = manifest.load_cell("mobile224.ppo2.e256", repo)
     assert "updates_in_window" not in [m["name"] for m in old.per_layer]
+
+
+def test_new_networks_from_files_alone(tmp_path):
+    # Two PPO2 networks besides the Nature CNN (the MLP on ground-truth
+    # states; a frozen PCA in the env, then the MLP), each a configuration,
+    # a traffic mix, a cell, readers, a reference, counts and a hand-in:
+    # files and entries added, none of the benchmark's edited.
+    import bench_copy
+
+    repo = bench_copy.bench_copy(tmp_path, "mlp_states", "pca_states")
+    for path in manifest.BENCH_DIR.rglob("*"):
+        rel = path.relative_to(manifest.BENCH_DIR)
+        if path.is_file() and rel.parts[0] != "tests" and "__pycache__" not in rel.parts:
+            assert (repo / "benchmark" / rel).read_bytes() == path.read_bytes(), rel
+    old = json.loads((manifest.REPO / "BENCHMARK.json").read_text())
+    new = json.loads((repo / "BENCHMARK.json").read_text())
+    for key in ("configs", "workloads", "end_to_end", "per_layer"):
+        assert new[key][:len(old[key])] == old[key]
+    for name, net, handin in (("mobile_gt.ppo2.e4", "mlp", False),
+                              ("mobile_pca.ppo2.e4", "pca_mlp", True)):
+        cell = manifest.load_cell(name, repo)
+        assert cell.config["network"] == net
+        assert cell.network.__file__ == str(repo / "benchmark" / "reference" / f"{net}.py")
+        assert (cell.handin is not None) is handin
+        shapes = cell.network.param_shapes(cell.config)
+        assert [k for k in shapes if cell.network.trained(k)][-2:] == ["pi.weight", "pi.bias"]
+        assert manifest.counts(net, repo).update_flops(cell.config, cell.traffic) > 0
+        assert set(cell.limits) == set(judge.NUMBERS)
+        assert {m["name"] for m in cell.end_to_end} == {f"env_steps_per_s.{name.split('.')[0]}",
+                                                        "setup_s"}
+        for m in cell.per_layer:
+            assert callable(manifest.metric_reader(m["name"], repo).read)
+    # The Nature CNN cells are as they were.
+    old_cell = manifest.load_cell("mobile224.ppo2.e256", repo)
+    assert old_cell.config["network"] == "nature_cnn" and old_cell.handin is None

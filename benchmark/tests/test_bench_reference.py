@@ -1,6 +1,7 @@
 """The reference against the program at a tiny size on the CPU: the env
 dynamics, auto-reset and renders bit for bit, the network within bfloat16's
-rounding, GAE and Adam within float32's."""
+rounding, GAE and Adam within float32's, the observation normalizer bit for
+bit."""
 import dataclasses
 
 import pytest
@@ -8,7 +9,7 @@ import torch
 
 import cell as driver
 import manifest
-from reference import nature_cnn, ppo
+from reference import ppo
 from reference import vec_env as ref_env
 
 CPU = torch.device("cpu")
@@ -61,13 +62,13 @@ def test_network_matches_the_programs_bfloat16_policy(name):
     gen.manual_seed(3)
     frames = agent.vec_env.reset(gen)[1]
     dist, value = agent.apply(params, frames)
-    logits, ref_value = nature_cnn.forward(params, frames, cell.config.get("input_scale", 1))
+    logits, ref_value = cell.network.forward(params, frames, cell.config)
     # bfloat16 keeps 8 significant bits: each fc512 feature is off by a few
     # parts in a thousand, and a head sums 512 of them with weights of about
     # 1/sqrt(512), so its output is off by about 0.005 whatever its size.
     assert torch.allclose(dist.logits, logits, atol=0.01)
     assert torch.allclose(value, ref_value, atol=0.01)
-    fp8, _ = nature_cnn.forward(params, frames, cell.config.get("input_scale", 1), "fp8")
+    fp8, _ = cell.network.forward(params, frames, cell.config, "fp8")
     assert (fp8 - logits).abs().max() > (dist.logits - logits).abs().max()
 
 
@@ -93,3 +94,20 @@ def test_gae_and_adam_match_the_program():
         adam_update_(prog, grads, state, 2.5e-4, 1e-5)
         ref = ppo.adam_step(ref, grads, ref_state, 2.5e-4, 1e-5)
     assert torch.allclose(prog["w"], ref["w"], atol=1e-7)
+
+
+def test_normalizer_follows_the_program():
+    from srl_tpu_torch.core.normalize import RunningNorm
+
+    from reference import normalize
+
+    gen = torch.Generator()
+    gen.manual_seed(9)
+    obs = torch.randn(9, 6, 3, generator=gen) * 4.0 + 1.5
+    norm, want = RunningNorm.create((3,)), []
+    for t in range(8):
+        norm = norm.update(obs[t])
+        want.append(norm.normalize(obs[t]))
+    want.append(norm.normalize(obs[8]))
+    # The same float32 operations in the same order, on the CPU.
+    assert torch.equal(normalize.follow(obs), torch.stack(want))
